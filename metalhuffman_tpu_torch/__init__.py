@@ -1,26 +1,47 @@
 """metalhuffman_tpu_torch: the PyTorch / CUDA port of metalhuffman_tpu.
 
-The JAX package ``metalhuffman_tpu`` is the reference; this package decodes
-the same containers with PyTorch and hand-written CUDA kernels for Hopper
-(``csrc/``, built with nvcc at first use). It shares the JAX package's host
-codec (``metalhuffman_tpu.core`` and the C++ ``native`` encoder), which
-imports no JAX, and imports no JAX itself.
+The JAX package ``metalhuffman_tpu`` is the reference; this package encodes
+and decodes the same containers with PyTorch, its own host codec (``core``,
+and the C++ encoder in ``native``, built with g++ at first use) and
+hand-written CUDA kernels for Hopper (``csrc/``, built with nvcc at first
+use). It imports no JAX and nothing of the JAX package.
 
-- ``ops.decode_cuda``: the shared-table image decode kernel, its plain
-  PyTorch version and the stream staging.
-- ``models.frame_stream``: shared-table (MHTV) video encode, container I/O
-  and batched decode.
+- ``ops.decode_cuda``: the decode kernels (8x8 images, packed blocks of
+  2/4/8/16), their plain PyTorch versions, the stream staging and the
+  end-bit integrity check.
+- ``models.frame_stream``: shared-table (MHTV) video encode, container I/O,
+  batched and checked decode.
+- ``models.image_codec``: the single-image codec (MHT1), region decode.
+
+Every entry point decodes on the card unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
 
-def decode_video(blob: bytes, device):
+def encode_image(img, config=None) -> bytes:
+    """(H, W) uint8 grayscale image -> MHT1 container bytes (host encode,
+    with the source CRC-32)."""
+    from .models.image_codec import ImageCodec
+
+    return ImageCodec(config).encode_to_bytes(img)
+
+
+def decode_image(blob: bytes, device="cuda"):
+    """MHT1 container bytes -> (H, W) uint8 numpy image, decoded on
+    ``device`` and checked against the recorded source CRC-32."""
+    from .models.image_codec import ImageCodec
+
+    return ImageCodec().decode(blob, device=device)
+
+
+def decode_video(blob: bytes, device="cuda"):
     """MHTV container bytes -> (T, H, W) uint8 numpy frames, decoded on
     ``device`` and checked against the recorded source CRC-32.
 
     The container fixes block_dim and precoder; ``device`` picks the decode
-    route (the CUDA kernel or, on the CPU, its plain version). Segmented
+    route (the CUDA kernels or, on the CPU, their plain versions). Segmented
     (MHV2) and temporal (MHVT) containers are not ported yet.
     """
     from .models import frame_stream

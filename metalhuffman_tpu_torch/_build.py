@@ -1,11 +1,15 @@
-"""Build and load the port's CUDA kernel library (nvcc + ctypes).
+"""Build and load the port's native libraries (nvcc or g++, then ctypes).
 
-The kernels under ``csrc/`` have a plain C interface. At first use ``nvcc``
-compiles them for Hopper (``sm_90a``) into one shared library whose name
-carries a hash of the sources and flags, under ``build/metalhuffman_tpu_torch/``
-at the root of the checkout; later loads of the same sources reuse it. There
-is no fallback: a missing ``nvcc`` or a failed build raises with nvcc's
-output, so a CUDA tensor never silently takes another path.
+Each CUDA kernel under ``csrc/`` has a plain C interface and builds into a
+shared library of its own: at first use ``nvcc`` compiles every kernel for
+Hopper (``sm_90a``), one process per source, all started together. A
+library's name carries a hash of its sources and flags, and it lives under
+``build/metalhuffman_tpu_torch/`` at the root of the checkout, with the
+compiler's output beside it (``.log``); later loads of the same sources reuse
+both. The host C++ codec (``native``) builds the same
+way with g++. There is no fallback: a missing compiler or a failed build
+raises with the compiler's output, so a CUDA tensor never silently takes
+another path.
 """
 
 from __future__ import annotations
@@ -18,16 +22,33 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = (CSRC / "decode_images.cu",)
+#: kernel name -> its source; the library exports ``mht_<name>``
+KERNELS = {
+    "decode_images": CSRC / "decode_images.cu",
+    "decode_blocks": CSRC / "decode_blocks.cu",
+}
+#: included by every kernel source, so part of every kernel's hash
+HEADERS = (CSRC / "decode_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "metalhuffman_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIB: ctypes.CDLL | None = None
-#: nvcc's output of the last build in this process (ptxas register report)
-build_log: str = ""
+_i64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+_TABLE = (ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32))
+_ARGTYPES = {
+    # words, n_words, offsets, n_blocks, bh, bw, bounds, adj, symbols, mode,
+    # out, end (NULL: no end bits), stream
+    "decode_images": [_ptr, _i64, _ptr, _i64, _i64, _i64, *_TABLE, _ptr, _int,
+                      _ptr, _ptr, _ptr],
+    # words, n_words, offsets, n_blocks, num_steps, bounds, adj, symbols,
+    # mode, out, end (NULL: no end bits), stream
+    "decode_blocks": [_ptr, _i64, _ptr, _i64, _int, *_TABLE, _ptr, _int,
+                      _ptr, _ptr, _ptr],
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str | None:
@@ -39,49 +60,80 @@ def find_nvcc() -> str | None:
     return shutil.which("nvcc")
 
 
-def library_path() -> Path:
-    """Content-hashed path of the library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+def hashed_path(stem: str, flags, sources) -> Path:
+    """Content-hashed library path for ``sources`` built with ``flags``."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libmht_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; return its path."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found ($CUDA_HOME/bin or PATH): the CUDA kernels of "
-            "metalhuffman_tpu_torch build with nvcc for sm_90a at first use")
+def compile_all(jobs) -> None:
+    """Run every ``(command, out)`` job at once and wait for all of them.
+
+    Each command gets ``-o <temporary>``; a job that succeeds is renamed to
+    ``out`` (atomic, so concurrent builds never load a partial file), after
+    its compiler output is kept beside it as ``out`` with suffix ``.log``.
+    Raises RuntimeError with the command and stderr of every job that
+    failed.
+    """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_log = proc.stdout + proc.stderr
-    return out
+    running = []
+    for cmd, out in jobs:
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((cmd, out, tmp, proc))
+    errors = []
+    for cmd, out, tmp, proc in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"{Path(cmd[0]).name} failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{stderr}")
+        else:
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(stdout + stderr)
+            os.replace(tmp_log, out.with_suffix(".log"))
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        dll = ctypes.CDLL(str(build()))
-        i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        dll.mht_decode_images.argtypes = [
-            ptr, i64, ptr, i64, i64, i64,
-            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
-            ptr, ctypes.c_int, ptr, ptr,
-        ]
-        dll.mht_decode_images.restype = ctypes.c_int
-        _LIB = dll
-    return _LIB
+def library_path(name: str) -> Path:
+    """Content-hashed path of kernel ``name``'s library."""
+    return hashed_path(f"libmht_{name}", NVCC_FLAGS, (KERNELS[name], *HEADERS))
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel library not built yet (or built without its
+    log); return name -> path."""
+    paths = {name: library_path(name) for name in KERNELS}
+    todo = [name for name, path in paths.items()
+            if not (path.exists() and path.with_suffix(".log").exists())]
+    if todo:
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(
+                "nvcc not found ($CUDA_HOME/bin or PATH): the CUDA kernels of "
+                "metalhuffman_tpu_torch build with nvcc for sm_90a at first use")
+        compile_all([([nvcc, *NVCC_FLAGS, str(KERNELS[name])], paths[name])
+                     for name in todo])
+    return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output when kernel ``name``'s library was built (ptxas's
+    register, shared-memory and spill report), kept beside the library."""
+    return build()[name].with_suffix(".log").read_text()
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (all kernels build at first use)."""
+    if name not in _LIBS:
+        dll = ctypes.CDLL(str(build()[name]))
+        fn = getattr(dll, f"mht_{name}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = dll
+    return _LIBS[name]

@@ -6,7 +6,9 @@
 // canonical-interval arithmetic from a 64-bit window refilled once per group of
 // 4 symbols, the precoder undone in registers (1-D delta in the symbol chain,
 // the 2-D predictor per 8-pixel row, or none), and each block row stored at its
-// final image position.
+// final image position. Given an end pointer it also stores each block's
+// row-local end bit, the TPU kernel's emit_end output (decode_pallas.py:
+// 396-397), for the on-device integrity check.
 //
 // Design: one CUDA thread per 8x8 block, 256 threads per CUDA block, over all
 // T*bh*bw blocks of the batch in raster block order with frames concatenated
@@ -17,7 +19,8 @@
 // Mosaic has no per-lane addressing. The table is the same for the whole batch
 // and is passed per launch: the 16 interval bounds and the 16 cumulative adj
 // values by value, the 256-byte canonical symbol order by pointer, staged into
-// shared memory once per CUDA block.
+// shared memory once per CUDA block. The refill and the symbol decode live in
+// decode_common.cuh, shared with the packed-block kernel (decode_blocks.cu).
 //
 // What bounds it on the H100: the serial decode chain of each block (64
 // dependent width/index/lookup steps, 15 compares each) and the scattered
@@ -29,26 +32,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decode_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-struct IntervalTable {
-  // bounds[L-1] = left-justified first code of length L (16-bit space).
-  // A bound of 0 always holds and one >= 2^16 never does, so the count below
-  // needs no pruning of absent code lengths.
-  uint32_t bounds[16];
-  // adj[w-1] = (codes shorter than w) - (first right-justified code of
-  // length w); may be negative. idx = adj[w-1] + (window >> (16 - w)).
-  int32_t adj[16];
-};
-
-__device__ __forceinline__ uint64_t swar_add8(uint64_t a, uint64_t b) {
-  // bytewise mod-256 add of 8 packed bytes, no carry between bytes
-  const uint64_t low7 = 0x7F7F7F7F7F7F7F7FULL;
-  const uint64_t hi = 0x8080808080808080ULL;
-  return ((a & low7) + (b & low7)) ^ ((a ^ b) & hi);
-}
+using mht::IntervalTable;
+using mht::kThreads;
 
 // MODE 0: no precoder; 1: 1-D delta (running sum over the block's 64 symbols);
 // 2: delta2d (row 0 running sum along the row, later rows add the row above).
@@ -56,18 +45,13 @@ template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 decode_images_kernel(const uint32_t* __restrict__ words, uint64_t last_word,
                      const uint32_t* __restrict__ offsets, int64_t n_blocks,
-                     int64_t bh, int64_t bw, IntervalTable tab,
+                     int64_t bh, int64_t bw,
+                     const __grid_constant__ IntervalTable tab,
                      const uint8_t* __restrict__ symbols,
-                     uint8_t* __restrict__ out) {
+                     uint8_t* __restrict__ out, int32_t* __restrict__ end) {
   __shared__ uint8_t s_sym[256];
   __shared__ int32_t s_adj[16];
-  s_sym[threadIdx.x] = symbols[threadIdx.x];
-  if (threadIdx.x == 0) {
-    // static indices: a dynamic index into the by-value table would copy
-    // it to the stack
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s_adj[i] = tab.adj[i];
-  }
+  mht::stage_table(tab, symbols, s_sym, s_adj);
   __syncthreads();
 
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -80,53 +64,22 @@ decode_images_kernel(const uint32_t* __restrict__ words, uint64_t last_word,
   const int64_t row_bytes = bw * 8;
   uint8_t* dst = out + ((f * bh + by) * 8) * row_bytes + bx * 8;
 
-  uint64_t pos = offsets[b];  // absolute bit position; may pass 2^32
-  uint32_t prev = 0;          // 1-D delta accumulator, reset per block
-  uint64_t prev_row = 0;      // delta2d: the reconstructed row above
+  const uint32_t start = offsets[b];
+  uint64_t pos = start;   // absolute bit position; may pass 2^32
+  uint32_t prev = 0;      // 1-D delta accumulator, reset per block
+  uint64_t prev_row = 0;  // delta2d: the reconstructed row above
 #pragma unroll 1
   for (int dy = 0; dy < 8; ++dy) {
-    uint64_t row = 0;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // refill: 64-bit window left-justified at `pos` from words wi..wi+2.
-      // A well-formed stream never needs the clamp (prepare_stream pads);
-      // it keeps a malformed offset index inside the buffer.
-      uint64_t wi = pos >> 5;
-      if (wi > last_word) wi = last_word;
-      const uint32_t s = (uint32_t)(pos & 31);
-      const uint64_t w01 = ((uint64_t)words[wi] << 32) | words[wi + 1];
-      // (uint64_t)w2 >> (32 - s) is defined for s == 0 in 64 bits
-      const uint64_t win = (w01 << s) | ((uint64_t)words[wi + 2] >> (32 - s));
-      uint32_t t = 0;  // bits consumed in this group, <= 48 before symbol 3
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t window = (uint32_t)((win << t) >> 48);
-        int w = 1;
-#pragma unroll
-        for (int L = 1; L < 16; ++L) w += window >= tab.bounds[L];
-        const int32_t idx = s_adj[w - 1] + (int32_t)(window >> (16 - w));
-        uint32_t sym = s_sym[idx & 255];
-        if (MODE == 1) {
-          prev = (prev + sym) & 0xFF;
-          sym = prev;
-        }
-        row |= (uint64_t)sym << (8 * (4 * half + k));
-        t += w;
-      }
-      pos += t;
-    }
-    if (MODE == 2) {
-      if (dy == 0) {  // prefix sum of the 8 bytes along the row
-        row = swar_add8(row, row << 8);
-        row = swar_add8(row, row << 16);
-        row = swar_add8(row, row << 32);
-      } else {
-        row = swar_add8(row, prev_row);
-      }
-      prev_row = row;
-    }
+    uint32_t lo, hi;  // pixels 0..3 and 4..7 of block row dy
+    pos += mht::decode_group<MODE == 1>(words, last_word, pos, tab, s_sym,
+                                        s_adj, prev, lo);
+    pos += mht::decode_group<MODE == 1>(words, last_word, pos, tab, s_sym,
+                                        s_adj, prev, hi);
+    uint64_t row = ((uint64_t)hi << 32) | lo;
+    if (MODE == 2) row = prev_row = mht::delta2d_row(dy, row, prev_row);
     *reinterpret_cast<uint64_t*>(dst + dy * row_bytes) = row;
   }
+  if (end != nullptr) end[b] = mht::row_local_end(start, pos);
 }
 
 }  // namespace
@@ -134,14 +87,15 @@ decode_images_kernel(const uint32_t* __restrict__ words, uint64_t last_word,
 // Decode n_blocks = T*bh*bw blocks into out, a (T, bh*8, bw*8) uint8 buffer.
 // words: n_words >= 3 big-endian u32 code words; offsets: n_blocks u32 bit
 // offsets; bounds/adj: 16 host values each (the interval table); symbols: 256
-// device bytes (canonical order); mode: 0 none, 1 delta, 2 delta2d. Launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// device bytes (canonical order); mode: 0 none, 1 delta, 2 delta2d; end: NULL,
+// or n_blocks int32 for the row-local end bits. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int mht_decode_images(const void* words, int64_t n_words,
                                  const void* offsets, int64_t n_blocks,
                                  int64_t bh, int64_t bw,
                                  const uint32_t* bounds, const int32_t* adj,
                                  const void* symbols, int mode, void* out,
-                                 void* stream) {
+                                 void* end, void* stream) {
   if (n_words < 3 || n_blocks <= 0 || bh <= 0 || bw <= 0 || mode < 0 ||
       mode > 2) {
     return (int)cudaErrorInvalidValue;
@@ -155,18 +109,19 @@ extern "C" int mht_decode_images(const void* words, int64_t n_words,
   const auto* o = static_cast<const uint32_t*>(offsets);
   const auto* sy = static_cast<const uint8_t*>(symbols);
   auto* dst = static_cast<uint8_t*>(out);
+  auto* e = static_cast<int32_t*>(end);
   const uint64_t last_word = (uint64_t)(n_words - 3);
   const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
     decode_images_kernel<0><<<grid, kThreads, 0, st>>>(
-        w, last_word, o, n_blocks, bh, bw, tab, sy, dst);
+        w, last_word, o, n_blocks, bh, bw, tab, sy, dst, e);
   } else if (mode == 1) {
     decode_images_kernel<1><<<grid, kThreads, 0, st>>>(
-        w, last_word, o, n_blocks, bh, bw, tab, sy, dst);
+        w, last_word, o, n_blocks, bh, bw, tab, sy, dst, e);
   } else {
     decode_images_kernel<2><<<grid, kThreads, 0, st>>>(
-        w, last_word, o, n_blocks, bh, bw, tab, sy, dst);
+        w, last_word, o, n_blocks, bh, bw, tab, sy, dst, e);
   }
   return (int)cudaGetLastError();
 }

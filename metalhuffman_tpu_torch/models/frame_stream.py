@@ -1,11 +1,13 @@
 """Shared-table video decode: one canonical table, one kernel launch per batch.
 
 Counterpart of the shared-table (MHTV) part of
-``metalhuffman_tpu/models/frame_stream.py``. Encoding stays on the host and
-shares the JAX package's codec (``core``, the C++ ``native`` encoder), so both
+``metalhuffman_tpu/models/frame_stream.py``. Encoding stays on the host (the
+port's copy of the C++ encoder, byte-identical to the JAX package's), so both
 packages produce and consume the very same ``EncodedStream``; decode stages
-the stream as tensors on an explicit device and runs
-:func:`..ops.decode_cuda.decode_images` over all T frames at once.
+the stream as tensors on an explicit device and decodes all T frames in one
+launch: :func:`..ops.decode_cuda.decode_images` for 8x8 blocks,
+:func:`..ops.decode_cuda.decode_blocks` and a torch relayout for 2x2, 4x4 and
+16x16.
 """
 
 from __future__ import annotations
@@ -17,24 +19,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from metalhuffman_tpu import native
-from metalhuffman_tpu.core import blocks, container, delta as delta_mod
-
+from .. import native
+from ..core import blocks, container, delta as delta_mod
 from ..ops import decode_cuda
 from .config import CodecConfig
 
 SHARED_MAGIC = b"MHTV"
-#: the packed-block kernel (other block sizes) is still to be ported
-_BLOCK_DIM_TODO = ("block_dim != 8 decodes through the packed-block kernel, "
-                   "still to port (ROADMAP.md queue A item 6)")
-
-
-def host_backend() -> str:
-    """Which host encoder the codec runs: ``"native"`` (the multithreaded
-    C++ library), or ``"numpy (...)"`` with the build error when that library
-    could not be built -- a fallback too slow and too memory-hungry for
-    full-size batches."""
-    return native.backend_name()
 
 
 def encode_frames_shared(
@@ -162,6 +152,7 @@ class PreparedShared:
     num_frames: int
     height: int
     width: int
+    block_dim: int
     bh: int  # block rows per frame
     bw: int  # block columns per frame
     words: torch.Tensor  # (n,) int32 big-endian code words + pad words
@@ -171,15 +162,20 @@ class PreparedShared:
     adj: tuple  # (16,) cumulative adj per code width
     #: (T, bh*bw) uint8 zero-init root bytes; None unless the stream has them
     init_grid: torch.Tensor | None = None
+    #: (T*bh*bw,) int32 expected row-local end bits in stream order (-1 =
+    #: unchecked); staged only by ``prepare_shared(..., check=True)``
+    end_targets: torch.Tensor | None = None
+    #: byte-rounded (lo, hi) window for the LAST block's end bit (its exact
+    #: end is not indexed); None when the stream has tail symbols
+    last_window: tuple | None = None
 
 
 def prepare_shared(stream: container.EncodedStream, num_frames: int,
                    height: int, width: int, config: CodecConfig | None = None,
-                   *, device) -> PreparedShared:
-    """Stage a shared-table stream's decode inputs on ``device``."""
+                   *, device="cuda", check: bool = False) -> PreparedShared:
+    """Stage a shared-table stream's decode inputs on ``device``; with
+    ``check`` also the targets of :func:`decode_shared_step_checked`."""
     cfg = config or CodecConfig()
-    if cfg.block_dim != 8:
-        raise NotImplementedError(_BLOCK_DIM_TODO)
     bh, bw = blocks.block_grid(height, width, cfg.block_dim)
     nb = num_frames * bh * bw
     if stream.block_offsets.size != nb:
@@ -192,44 +188,100 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
         init_grid = torch.from_numpy(
             stream.block_init.astype(np.uint8).reshape(num_frames, bh * bw)
         ).to(device)
+    end_targets = last_window = None
+    if check:
+        # the last block's exact end is only known up to byte rounding:
+        # target -1 here, and the window below in decode_shared_step_checked
+        end_targets = torch.from_numpy(
+            decode_cuda.block_end_targets(stream.block_offsets, None)
+        ).to(device)
+        last_window = decode_cuda.last_block_window(stream, cfg.block_size)
     return PreparedShared(
-        num_frames, height, width, bh, bw,
+        num_frames, height, width, cfg.block_dim, bh, bw,
         torch.from_numpy(words).to(device),
         torch.from_numpy(offsets).to(device),
         torch.from_numpy(meta.symbols).to(device),
-        meta.bounds, meta.adj, init_grid)
+        meta.bounds, meta.adj, init_grid, end_targets, last_window)
+
+
+def _decode(prep: PreparedShared, cfg: CodecConfig, raw: bool,
+            emit_end: bool):
+    """One launch over the staged batch -> (result, end bits or None)."""
+    if cfg.block_dim != prep.block_dim:
+        raise ValueError(f"batch was staged for block_dim {prep.block_dim}, "
+                         f"config has {cfg.block_dim}")
+    # delta2d replaces the 1-D delta in the symbol chain
+    kdelta = cfg.delta and not cfg.delta2d
+    t, bh, bw, bd = prep.num_frames, prep.bh, prep.bw, prep.block_dim
+    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    end = None
+    if bd == 8:
+        if raw and prep.init_grid is not None:
+            raise ValueError(
+                "raw output cannot carry the zero-init root fold; "
+                "decode zero-init streams with raw=False")
+        out = decode_cuda.decode_images(
+            *args, num_frames=t, bh=bh, bw=bw, delta=kdelta,
+            delta2d=cfg.delta2d, emit_end=emit_end)
+        if emit_end:
+            out, end = out
+        if raw:
+            return out, end
+        if prep.init_grid is not None:
+            # adding each block's root byte to the whole block (mod 256)
+            # equals seeding the decoder's accumulator with it; done in
+            # place on the fresh kernel output
+            out.view(t, bh, 8, bw, 8).add_(prep.init_grid.view(t, bh, 1, bw, 1))
+        return out[:, : prep.height, : prep.width].contiguous(), end
+    # other block sizes: the packed-block kernel, then a torch relayout
+    blk = decode_cuda.decode_blocks(
+        *args, num_steps=bd * bd, delta=kdelta, emit_end=emit_end)
+    if emit_end:
+        blk, end = blk
+    if cfg.delta2d:  # the in-kernel 2-D reconstruction is 8x8-specific
+        blk = delta_mod.delta2d_decode_blocks(blk, bd)
+    if prep.init_grid is not None:
+        blk.add_(prep.init_grid.view(-1, 1))  # the fold, on fresh blocks
+    img = blocks.blocks_to_image_torch(
+        blk.view(t, bh * bw, bd * bd), prep.height, prep.width, bd)
+    return img.contiguous(), end
 
 
 def decode_shared_step(prep: PreparedShared, config: CodecConfig | None = None,
                        raw: bool = False) -> torch.Tensor:
     """Decode a staged batch on its device.
 
-    Returns a contiguous (T, H, W) uint8 tensor, or with ``raw=True`` the
-    kernel's (T, bh*8, bw*8) output untouched (:func:`frames_from_raw` crops
-    it as a view). Zero-init streams need the image form, which folds the
-    root bytes in after the kernel.
+    Returns a contiguous (T, H, W) uint8 tensor. With ``raw=True`` at 8x8
+    blocks it returns the kernel's (T, bh*8, bw*8) output untouched
+    (:func:`frames_from_raw` crops it as a view); zero-init streams need the
+    image form, which folds the root bytes in after the kernel. Other block
+    sizes have no raw form and always return the image form.
     """
-    cfg = config or CodecConfig()
-    if cfg.block_dim != 8:
-        raise NotImplementedError(_BLOCK_DIM_TODO)
-    if raw and prep.init_grid is not None:
-        raise ValueError(
-            "raw output cannot carry the zero-init root fold; "
-            "decode zero-init streams with raw=False")
-    out = decode_cuda.decode_images(
-        prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj,
-        num_frames=prep.num_frames, bh=prep.bh, bw=prep.bw,
-        delta=cfg.delta and not cfg.delta2d, delta2d=cfg.delta2d)
-    if raw:
-        return out
-    if prep.init_grid is not None:
-        # adding each block's root byte to the whole block (mod 256) equals
-        # seeding the decoder's accumulator with it; done in place on the
-        # fresh kernel output
-        t, bh, bw = prep.num_frames, prep.bh, prep.bw
-        out.view(t, bh, 8, bw, 8).add_(
-            prep.init_grid.view(t, bh, 1, bw, 1))
-    return out[:, : prep.height, : prep.width].contiguous()
+    return _decode(prep, config or CodecConfig(), raw, emit_end=False)[0]
+
+
+def decode_shared_step_checked(prep: PreparedShared,
+                               config: CodecConfig | None = None,
+                               raw: bool = False):
+    """Decode + on-device integrity check of a staged batch.
+
+    Requires ``prepare_shared(..., check=True)``. Returns ``(result,
+    err_mask)``: ``result`` as :func:`decode_shared_step` gives it, and
+    ``err_mask`` a stream-order (nb,) bool numpy array, True for a block that
+    did not end at its indexed bit position (corrupt or truncated stream).
+    The kernel stores one more int32 per block; the comparison runs on the
+    device and only the mask comes back to the host.
+    """
+    if prep.end_targets is None:
+        raise ValueError("prepare_shared(..., check=True) required")
+    result, end = _decode(prep, config or CodecConfig(), raw, emit_end=True)
+    err = decode_cuda.check_block_ends(end, prep.end_targets)
+    if prep.last_window is not None and err.numel():
+        # the last block's end is only indexed up to byte rounding: a
+        # byte-rounded window replaces the unchecked -1 target
+        lo, hi = prep.last_window
+        err[-1] = (end[-1] < lo) | (end[-1] > hi)
+    return result, err.cpu().numpy()
 
 
 def frames_from_raw(raw: torch.Tensor, num_frames: int, height: int,
@@ -241,7 +293,7 @@ def frames_from_raw(raw: torch.Tensor, num_frames: int, height: int,
 def decode_frames_shared(stream: container.EncodedStream, num_frames: int,
                          height: int, width: int,
                          config: CodecConfig | None = None, *,
-                         device) -> torch.Tensor:
+                         device="cuda") -> torch.Tensor:
     """Decode a shared-table stream -> (T, H, W) uint8 tensor on ``device``."""
     prep = prepare_shared(stream, num_frames, height, width, config,
                           device=device)

@@ -1,17 +1,25 @@
-"""Shared-table image decode: the CUDA kernel, its plain version, their staging.
+"""Shared-table decode: the CUDA kernels, their plain versions, their staging.
 
-Counterpart of ``metalhuffman_tpu/ops/decode_pallas.py`` for the image-emission
-path (``decode_tiles_images``). The kernel (``csrc/decode_images.cu``) reads
-the packed big-endian word stream at each block's own bit offset, so the TPU
-staging (word rows, (8,128) tiles, feed permutation, ImagePlan padding) has no
-counterpart here.
+Counterpart of ``metalhuffman_tpu/ops/decode_pallas.py``. Two kernels, both
+reading the packed big-endian word stream at each block's own bit offset, so
+the TPU staging (word rows, (8,128) tiles, feed permutation, ImagePlan
+padding) has no counterpart here:
 
-Output contract of :func:`decode_images`: a ``(T, bh*8, bw*8)`` uint8 tensor,
-frames padded only to whole 8x8 blocks; block ``b`` of the raster block order
-(frames concatenated) lands at frame ``b // (bh*bw)``, block row
-``(b % (bh*bw)) // bw``, block column ``b % bw``.
+- :func:`decode_images` (``csrc/decode_images.cu``, TPU kernel
+  ``decode_tiles_images``): 8x8 blocks stored at their image positions, a
+  ``(T, bh*8, bw*8)`` uint8 tensor, frames padded only to whole blocks;
+  block ``b`` of the raster block order (frames concatenated) lands at frame
+  ``b // (bh*bw)``, block row ``(b % (bh*bw)) // bw``, block column
+  ``b % bw``.
+- :func:`decode_blocks` (``csrc/decode_blocks.cu``, TPU kernel
+  ``decode_tiles``): blocks of any ``num_steps % 4 == 0`` symbols, an
+  ``(nb, num_steps)`` uint8 tensor in the order of the offset index.
 
-The wrapper routes by the device of its tensors alone: CPU tensors take the
+Both can also return each block's row-local end bit, ``(offset & 31)`` plus
+the bits it consumed (the TPU kernel's ``emit_end`` carry), which
+:func:`check_block_ends` holds against :func:`block_end_targets`.
+
+Each wrapper routes by the device of its tensors alone: CPU tensors take the
 plain PyTorch version, CUDA tensors the kernel (or an exception), anything
 else raises.
 """
@@ -24,14 +32,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from metalhuffman_tpu.core import bitstream
+from ..core import bitstream
 
 #: zero u32 words appended after the stream (see :func:`prepare_stream`)
 PAD_WORDS = 2
 _M32 = 0xFFFFFFFF
 
-#: kernel launches made by :func:`decode_images` in this process
-launches = 0
+#: kernel launches made by the wrappers in this process, by kernel name
+launches = {"decode_images": 0, "decode_blocks": 0}
 
 
 @dataclass(frozen=True)
@@ -75,17 +83,27 @@ def prepare_stream(stream):
     ``PAD_WORDS`` zero words appended; ``offsets`` the u32 block bit offsets
     as int32 (same bits; consumers read them as unsigned).
 
-    Two pad words are enough: a well-formed block's last 4-symbol group
-    starts at a bit ``p <= total_bits - 4`` (each of its symbols takes at
-    least one bit) and reads words ``p>>5 .. (p>>5)+2``, while the unpadded
-    stream already holds ``ceil(total_bits/32) >= ((total_bits-4)>>5) + 1``
-    words. The kernel clamps the refill index to ``n_words - 3`` besides, so
-    a malformed offset index cannot read past the buffer.
+    Two pad words are enough, at any block size: a well-formed block's
+    last 4-symbol group starts at a bit ``p <= total_bits - 4`` (each of its
+    symbols takes at least one bit) and reads words ``p>>5 .. (p>>5)+2``,
+    while the unpadded stream already holds ``ceil(total_bits/32) >=
+    ((total_bits-4)>>5) + 1`` words. The kernels clamp the refill index to
+    ``n_words - 3`` besides, so a malformed offset index cannot read past
+    the buffer.
     """
     meta = canonical_meta(stream.widths)
     words = bitstream.bytes_to_be_words(stream.code_bytes, pad_words=PAD_WORDS)
     offsets = np.asarray(stream.block_offsets, dtype=np.uint32)
     return meta, words.view(np.int32), offsets.view(np.int32)
+
+
+def max_block_bits(block_offsets: np.ndarray, total_bits: int) -> int:
+    """Largest encoded block size in bits (offsets are ascending)."""
+    offs = np.asarray(block_offsets, dtype=np.int64)
+    if offs.size == 0:
+        return 0
+    ends = np.append(offs[1:], np.int64(total_bits))
+    return int((ends - offs).max())
 
 
 def _mode(delta: bool, delta2d: bool) -> int:
@@ -94,26 +112,26 @@ def _mode(delta: bool, delta2d: bool) -> int:
     return 2 if delta2d else int(delta)
 
 
-def decode_images_plain(words: torch.Tensor, offsets: torch.Tensor,
-                        symbols: torch.Tensor, bounds, adj, *,
-                        num_frames: int, bh: int, bw: int, delta: bool,
-                        delta2d: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: one lane per block, 64 steps.
+def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
+                  symbols: torch.Tensor, bounds, adj, num_steps: int,
+                  mode: int):
+    """Plain PyTorch decode, one lane per block -> ((nb, num_steps) int64
+    symbols with the precoder undone, (nb,) int32 row-local end bits).
 
     All arithmetic is int64 with explicit 32-bit masks, because ``>>`` on a
     signed int32 tensor is arithmetic while the decode needs logical shifts.
     """
-    mode = _mode(delta, delta2d)
     dev = words.device
     nb = offsets.numel()
     w64 = words.to(torch.int64) & _M32
     last = words.numel() - 3
-    pos = offsets.to(torch.int64) & _M32
+    start = offsets.to(torch.int64) & _M32
+    pos = start
     b_tab = torch.tensor(bounds[1:], dtype=torch.int64, device=dev)
     adj_t = torch.tensor(adj, dtype=torch.int64, device=dev)
     syms = symbols.to(torch.int64)
-    out = torch.empty((nb, 64), dtype=torch.int64, device=dev)
-    for g in range(16):
+    out = torch.empty((nb, num_steps), dtype=torch.int64, device=dev)
+    for g in range(num_steps // 4):
         wi = torch.clamp(pos >> 5, max=last)
         s = pos & 31
         w0, w1, w2 = w64[wi], w64[wi + 1], w64[wi + 2]
@@ -134,30 +152,52 @@ def decode_images_plain(words: torch.Tensor, offsets: torch.Tensor,
         pos = pos + t
     if mode == 1:
         out = torch.cumsum(out, 1)
-    elif mode == 2:
+    elif mode == 2:  # 8x8 only: row 0 along the row, then down the columns
         sq = out.view(nb, 8, 8)
         sq[:, 0] = torch.cumsum(sq[:, 0], 1)
         out = torch.cumsum(sq, 1).view(nb, 64)
-    blocks = (out & 0xFF).to(torch.uint8)
-    return blocks.view(num_frames, bh, bw, 8, 8).permute(0, 1, 3, 2, 4).reshape(
-        num_frames, bh * 8, bw * 8)
+    end = ((start & 31) + (pos - start)).to(torch.int32)
+    return out & 0xFF, end
 
 
-def decode_images(words: torch.Tensor, offsets: torch.Tensor,
-                  symbols: torch.Tensor, bounds, adj, *, num_frames: int,
-                  bh: int, bw: int, delta: bool,
-                  delta2d: bool = False) -> torch.Tensor:
-    """Decode a staged shared-table batch -> (T, bh*8, bw*8) uint8.
+def decode_images_plain(words: torch.Tensor, offsets: torch.Tensor,
+                        symbols: torch.Tensor, bounds, adj, *,
+                        num_frames: int, bh: int, bw: int, delta: bool,
+                        delta2d: bool = False, emit_end: bool = False):
+    """Plain PyTorch version of the image kernel: the same output as
+    :func:`decode_images`, (out, end) with ``emit_end``."""
+    out, end = _decode_plain(words, offsets, symbols, bounds, adj, 64,
+                             _mode(delta, delta2d))
+    img = out.to(torch.uint8).view(num_frames, bh, bw, 8, 8).permute(
+        0, 1, 3, 2, 4).reshape(num_frames, bh * 8, bw * 8)
+    return (img, end) if emit_end else img
 
-    ``words``: (n,) int32 big-endian code words (:func:`prepare_stream`);
-    ``offsets``: (T*bh*bw,) int32 block bit offsets (read as u32);
-    ``symbols``: (256,) uint8 canonical symbol order; ``bounds``/``adj``:
-    the 16-entry interval table (host ints). CPU tensors run
-    :func:`decode_images_plain`; CUDA tensors launch the kernel.
-    """
-    global launches
-    mode = _mode(delta, delta2d)
-    nb = num_frames * bh * bw
+
+def _check_steps(num_steps: int, delta2d: bool) -> None:
+    if num_steps % 4 or not 4 <= num_steps <= 256:
+        raise ValueError(
+            f"num_steps ({num_steps}) must be a multiple of 4 in [4, 256] "
+            "(blocks of 2, 4, 8 or 16)")
+    if delta2d and num_steps != 64:
+        raise ValueError("in-kernel delta2d needs 8x8 blocks (num_steps 64); "
+                         "other sizes fold it after the decode")
+
+
+def decode_blocks_plain(words: torch.Tensor, offsets: torch.Tensor,
+                        symbols: torch.Tensor, bounds, adj, *, num_steps: int,
+                        delta: bool, delta2d: bool = False,
+                        emit_end: bool = False):
+    """Plain PyTorch version of the packed-block kernel: the same output as
+    :func:`decode_blocks`, (out, end) with ``emit_end``."""
+    _check_steps(num_steps, delta2d)
+    out, end = _decode_plain(words, offsets, symbols, bounds, adj, num_steps,
+                             _mode(delta, delta2d))
+    out = out.to(torch.uint8)
+    return (out, end) if emit_end else out
+
+
+def _check_inputs(words, offsets, symbols, bounds, adj, n_blocks: int) -> str:
+    """Validate a wrapper's inputs; return the device type they lie on."""
     for name, x, dtype in (("words", words, torch.int32),
                            ("offsets", offsets, torch.int32),
                            ("symbols", symbols, torch.uint8)):
@@ -165,33 +205,149 @@ def decode_images(words: torch.Tensor, offsets: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
         if x.device != words.device:
             raise ValueError(f"{name} is on {x.device}, words on {words.device}")
-    if offsets.numel() != nb:
-        raise ValueError(f"{offsets.numel()} block offsets for {nb} blocks")
+    if offsets.numel() != n_blocks:
+        raise ValueError(f"{offsets.numel()} block offsets for {n_blocks} blocks")
     if symbols.numel() != 256 or len(bounds) != 16 or len(adj) != 16:
         raise ValueError("the table needs 256 symbols, 16 bounds, 16 adj")
     if words.numel() < 3:
         raise ValueError("the word stream needs at least 3 words")
     kind = words.device.type
-    if kind == "cpu":
-        return decode_images_plain(
-            words, offsets, symbols, bounds, adj, num_frames=num_frames,
-            bh=bh, bw=bw, delta=delta, delta2d=delta2d)
-    if kind != "cuda":
+    if kind not in ("cpu", "cuda"):
         raise ValueError(f"no decode for tensors on {words.device}")
+    return kind
+
+
+def _launch(name: str, words: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` on the current stream of ``words``' device."""
     from .. import _build
 
-    out = torch.empty((num_frames, bh * 8, bw * 8), dtype=torch.uint8,
-                      device=words.device)
-    if nb == 0:
-        return out
-    b_arr = (ctypes.c_uint32 * 16)(*bounds)
-    a_arr = (ctypes.c_int32 * 16)(*adj)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _build.lib().mht_decode_images(
-            words.data_ptr(), words.numel(), offsets.data_ptr(), nb, bh, bw,
-            b_arr, a_arr, symbols.data_ptr(), mode, out.data_ptr(), stream)
+        err = getattr(_build.lib(name), f"mht_{name}")(
+            words.data_ptr(), words.numel(), *args, stream)
     if err:
-        raise RuntimeError(f"mht_decode_images launch failed: CUDA error {err}")
-    launches += 1
-    return out
+        raise RuntimeError(f"mht_{name} launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def _table_args(bounds, adj):
+    return (ctypes.c_uint32 * 16)(*bounds), (ctypes.c_int32 * 16)(*adj)
+
+
+def decode_images(words: torch.Tensor, offsets: torch.Tensor,
+                  symbols: torch.Tensor, bounds, adj, *, num_frames: int,
+                  bh: int, bw: int, delta: bool, delta2d: bool = False,
+                  emit_end: bool = False):
+    """Decode a staged shared-table batch of 8x8 blocks -> (T, bh*8, bw*8)
+    uint8, and with ``emit_end`` also the (T*bh*bw,) int32 row-local end
+    bits in stream order.
+
+    ``words``: (n,) int32 big-endian code words (:func:`prepare_stream`);
+    ``offsets``: (T*bh*bw,) int32 block bit offsets (read as u32);
+    ``symbols``: (256,) uint8 canonical symbol order; ``bounds``/``adj``:
+    the 16-entry interval table (host ints). CPU tensors run
+    :func:`decode_images_plain`; CUDA tensors launch the kernel.
+    """
+    mode = _mode(delta, delta2d)
+    nb = num_frames * bh * bw
+    if _check_inputs(words, offsets, symbols, bounds, adj, nb) == "cpu":
+        return decode_images_plain(
+            words, offsets, symbols, bounds, adj, num_frames=num_frames,
+            bh=bh, bw=bw, delta=delta, delta2d=delta2d, emit_end=emit_end)
+    out = torch.empty((num_frames, bh * 8, bw * 8), dtype=torch.uint8,
+                      device=words.device)
+    end = (torch.empty(nb, dtype=torch.int32, device=words.device)
+           if emit_end else None)
+    if nb:
+        _launch("decode_images", words, offsets.data_ptr(), nb, bh, bw,
+                *_table_args(bounds, adj), symbols.data_ptr(), mode,
+                out.data_ptr(), None if end is None else end.data_ptr())
+    return (out, end) if emit_end else out
+
+
+def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
+                  symbols: torch.Tensor, bounds, adj, *, num_steps: int,
+                  delta: bool, delta2d: bool = False, emit_end: bool = False):
+    """Decode staged blocks of ``num_steps`` symbols -> (nb, num_steps)
+    uint8 in the order of ``offsets``, and with ``emit_end`` also the (nb,)
+    int32 row-local end bits.
+
+    The inputs are those of :func:`decode_images`; ``offsets`` may be in any
+    order and may repeat. ``delta2d`` (in-kernel 2-D predictor) needs
+    ``num_steps == 64``. CPU tensors run :func:`decode_blocks_plain`; CUDA
+    tensors launch the kernel.
+    """
+    mode = _mode(delta, delta2d)
+    _check_steps(num_steps, delta2d)
+    nb = offsets.numel()
+    if _check_inputs(words, offsets, symbols, bounds, adj, nb) == "cpu":
+        return decode_blocks_plain(
+            words, offsets, symbols, bounds, adj, num_steps=num_steps,
+            delta=delta, delta2d=delta2d, emit_end=emit_end)
+    out = torch.empty((nb, num_steps), dtype=torch.uint8, device=words.device)
+    end = (torch.empty(nb, dtype=torch.int32, device=words.device)
+           if emit_end else None)
+    if nb:
+        _launch("decode_blocks", words, offsets.data_ptr(), nb, num_steps,
+                *_table_args(bounds, adj), symbols.data_ptr(), mode,
+                out.data_ptr(), None if end is None else end.data_ptr())
+    return (out, end) if emit_end else out
+
+
+# -- stream-integrity check ----------------------------------------------------
+#
+# A canonical Huffman stream self-synchronizes only if every bit is intact:
+# any flipped/lost bit desyncs the decoder, and the block then ends at the
+# wrong bit position with overwhelming probability. Each kernel's end-bit
+# output compared against ``(offset & 31) + block_bits`` (known from the offset
+# index) yields a per-block corruption mask with no extra decode work. (A
+# corruption that preserves total bit length within a block passes this
+# check; pair it with the container CRC for whole-payload integrity.)
+
+def block_end_targets(block_offsets, last_end_bit: int | None) -> np.ndarray:
+    """Stream-order expected row-local end bit per block -> (nb,) int32.
+
+    ``last_end_bit`` is the bit position where the LAST block ends (equal to
+    the stream's exact total bits when there is no partial tail). Pass None
+    when unknown (e.g. the stream may carry tail symbols past the last
+    whole block): the last block is then marked -1 = unchecked.
+    """
+    offs = np.asarray(block_offsets, dtype=np.int64)
+    if offs.size == 0:
+        return np.zeros(0, np.int32)
+    if last_end_bit is None:
+        ends = np.append(offs[1:], offs[-1])  # placeholder, masked below
+    else:
+        ends = np.append(offs[1:], np.int64(last_end_bit))
+    t = ((offs & 31) + (ends - offs)).astype(np.int32)
+    if last_end_bit is None:
+        t[-1] = -1
+    return t
+
+
+def last_block_window(stream, block_size: int) -> tuple | None:
+    """Byte-rounded ``(lo, hi)`` window for the LAST block's row-local end bit.
+
+    The offset index has no successor for the last block; when the stream
+    carries no tail symbols, that block ends at the stream's exact bit count,
+    known from the code bytes only up to byte rounding. None when the
+    stream is empty or has tail symbols (the last end stays unchecked).
+    """
+    nb = stream.block_offsets.size
+    if nb == 0 or stream.num_symbols != nb * block_size:
+        return None
+    total_bits = 8 * (stream.code_bytes.size - bitstream.READ_AHEAD_PAD_BYTES)
+    off_last = int(stream.block_offsets[-1])
+    hi = (off_last & 31) + (total_bits - off_last)
+    return hi - 7, hi
+
+
+def check_block_ends(end_bits, targets):
+    """End bits vs targets (-1 = don't check) -> flat bool err mask.
+
+    Takes numpy arrays or tensors (on any one device) in the same block
+    order, and returns the same kind.
+    """
+    e = end_bits.reshape(-1)
+    t = targets.reshape(-1)
+    return (e != t) & (t >= 0)

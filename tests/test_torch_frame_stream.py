@@ -184,8 +184,13 @@ def test_unported_containers_and_block_dims_raise():
     for magic in (b"MHV2", b"MHVT"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             metalhuffman_tpu_torch.decode_video(magic + bytes(32), "cpu")
-    frames = _frames(1, 16, 16)
-    stream = tfs.encode_frames_shared(frames, CodecConfig(block_dim=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.prepare_shared(stream, 1, 16, 16, CodecConfig(block_dim=4),
-                           device="cpu")
+    # the kernels take 4 symbols per refill: blocks of 2, 4, 8 or 16 only
+    # (the JAX package's XLA path also decodes odd sizes)
+    for bd in (1, 3, 6, 32):
+        with pytest.raises(ValueError, match="block_dim"):
+            CodecConfig(block_dim=bd)
+    frames = _frames(1, 12, 12)
+    stream = jfs.encode_frames_shared(frames, _jax_cfg(block_dim=3))
+    blob = jfs.write_shared(stream, 1, 12, 12, _jax_cfg(block_dim=3))
+    with pytest.raises(ValueError, match="block_dim"):
+        metalhuffman_tpu_torch.decode_video(blob, "cpu")

@@ -1,7 +1,9 @@
-"""Guards of the port's boundaries: no JAX, no module-level Triton, a CUDA
-build that fails loudly, and no plain-version fallback off the CPU."""
+"""Guards of the port's boundaries: no JAX and nothing of the JAX package,
+no module-level Triton, CUDA and host builds that fail loudly, and no
+plain-version fallback off the CPU."""
 
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -10,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from metalhuffman_tpu_torch import _build
+from metalhuffman_tpu_torch import _build, native
 from metalhuffman_tpu_torch.ops import decode_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -26,19 +28,25 @@ PORT_FILES = sorted((ROOT / "metalhuffman_tpu_torch").rglob("*.py")) + [
 def test_port_imports_and_decodes_without_jax():
     code = """
 import sys
-sys.modules['jax'] = None  # any import of jax now raises ImportError
+# any import of jax or of the JAX package now raises ImportError
+sys.modules['jax'] = None
+sys.modules['metalhuffman_tpu'] = None
 import zlib
 import numpy as np
 import metalhuffman_tpu_torch
-from metalhuffman_tpu_torch.ops import decode_cuda
 from metalhuffman_tpu_torch.models import frame_stream
+from metalhuffman_tpu_torch.models.config import CodecConfig
 frames = np.random.default_rng(0).integers(0, 256, (2, 16, 24), dtype=np.uint8)
 stream = frame_stream.encode_frames_shared(frames)
 blob = frame_stream.write_shared(stream, 2, 16, 24,
                                  source_crc32=zlib.crc32(frames.tobytes()))
 out = metalhuffman_tpu_torch.decode_video(blob, "cpu")
 assert (out == frames).all()
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+for bd in (4, 8):
+    img = metalhuffman_tpu_torch.encode_image(frames[0], CodecConfig(block_dim=bd))
+    assert (metalhuffman_tpu_torch.decode_image(img, device="cpu") == frames[0]).all()
+assert not any(m == "jax" or m.startswith(("jax.", "metalhuffman_tpu."))
+               or m == "metalhuffman_tpu" for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
 """
@@ -55,8 +63,8 @@ def test_no_jax_and_no_module_level_triton(path):
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M)
     assert not re.search(r"^(import|from)\s+triton\b", src, re.M)
     assert not re.search(
-        r"^\s*(import|from)\s+metalhuffman_tpu\.(ops|models|parallel)\b",
-        src, re.M)
+        r"^\s*(import|from)\s+metalhuffman_tpu\b(?!_torch)", src, re.M)
+    assert not re.search(r"\bimport_module\(|__import__\(", src)
 
 
 def test_chip_smoke_reaches_the_codec_only_through_the_port():
@@ -80,8 +88,15 @@ def test_build_targets_sm90a_under_build_dir():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert _build.BUILD_DIR == ROOT / "build" / "metalhuffman_tpu_torch"
-    assert _build.library_path().parent == _build.BUILD_DIR
-    assert all(src.suffix == ".cu" and src.is_file() for src in _build.SOURCES)
+    paths = {_build.library_path(name) for name in _build.KERNELS}
+    assert len(paths) == len(_build.KERNELS)  # one library per kernel
+    assert {p.parent for p in paths} == {_build.BUILD_DIR}
+    assert native.library_path().parent == _build.BUILD_DIR
+    assert all(src.suffix == ".cu" and src.is_file()
+               for src in _build.KERNELS.values())
+    assert all(h.is_file() for h in _build.HEADERS)
+    for name, src in _build.KERNELS.items():
+        assert f"mht_{name}(" in src.read_text()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -93,14 +108,35 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build()
 
 
+def test_host_build_raises_without_gxx(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.encode_symbols(np.arange(64, dtype=np.uint8))
+    assert not (tmp_path / "build").exists()
+
+
+def test_host_build_raises_with_the_compiler_error(monkeypatch, tmp_path):
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "SRC", bad)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build()
+    assert not list((tmp_path / "build").iterdir())
+
+
 def test_decode_images_off_cpu_raises_instead_of_plain():
     args = (torch.zeros(8, dtype=torch.int32, device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta"),
             torch.zeros(256, dtype=torch.uint8, device="meta"),
             (0,) * 16, (0,) * 16)
-    before = decode_cuda.launches
+    before = dict(decode_cuda.launches)
     with pytest.raises(ValueError, match="meta"):
         decode_cuda.decode_images(*args, num_frames=1, bh=1, bw=2, delta=True)
+    with pytest.raises(ValueError, match="meta"):
+        decode_cuda.decode_blocks(*args, num_steps=16, delta=True)
     assert decode_cuda.launches == before
 
 
@@ -118,3 +154,42 @@ def test_decode_images_checks_its_inputs():
     with pytest.raises(ValueError, match="delta2d"):
         decode_cuda.decode_images(words, offs, syms, *table, num_frames=1,
                                   bh=1, bw=2, delta=True, delta2d=True)
+    for steps in (0, 6, 260):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            decode_cuda.decode_blocks(words, offs, syms, *table,
+                                      num_steps=steps, delta=True)
+    with pytest.raises(ValueError, match="8x8"):
+        decode_cuda.decode_blocks(words, offs, syms, *table, num_steps=16,
+                                  delta=False, delta2d=True)
+
+
+def test_chip_smoke_without_a_card_prints_no_result(capsys):
+    assert chip_smoke.main(["--bogus"]) == 2
+    assert "--ab" in capsys.readouterr().err
+    for argv in ([], ["--ab", "baseline.cu"]):  # no card here: no numbers
+        assert chip_smoke.main(argv) == 1
+        out = capsys.readouterr()
+        assert out.out == "" and "CUDA is not available" in out.err
+
+
+def test_build_keeps_the_compiler_output_beside_each_library(monkeypatch,
+                                                             tmp_path):
+    gxx = shutil.which("g++")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "warn.cpp"
+    src.write_text('extern "C" int f() { int unused = 0; return 1; }\n')
+    out = _build.hashed_path("libwarn", ("-Wall",), (src,))
+    _build.compile_all([([gxx, "-Wall", "-shared", "-fPIC", str(src)], out)])
+    assert out.is_file() and "unused" in out.with_suffix(".log").read_text()
+    # a kernel library without its log counts as unbuilt (no nvcc here)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    paths = {name: _build.library_path(name) for name in _build.KERNELS}
+    for p in paths.values():
+        p.touch()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    for name, p in paths.items():
+        p.with_suffix(".log").write_text(f"ptxas info : {name}\n")
+    assert _build.build() == paths
+    assert _build.build_log("decode_blocks") == "ptxas info : decode_blocks\n"
