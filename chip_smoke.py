@@ -8,7 +8,7 @@ the CUDA toolkit (nvcc) and g++:
 
 Phases (any failure exits nonzero and prints no result):
 
-1. Build both CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
+1. Build the three CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source, in parallel) and the host C++
    codec (g++), and print the build time and ptxas's register, shared-memory
    and spill lines.
@@ -18,7 +18,11 @@ Phases (any failure exits nonzero and prints no result):
    (``decode_images``): 8x8 batches in every precoder, and its end bits
    against ``block_end_targets``. B2 (``decode_blocks``): one 2048x1536
    frame at block sizes 2, 4, 8 and 16, 1-D delta and none, and delta2d at 8
-   (in the kernel) and 16 (torch post-pass).
+   (in the kernel) and 16 (torch post-pass). B3 (``encode_rows``): every row
+   word and count word, on 2048x1536 and 1920x1080 delta payloads and on
+   three tables of the encoder tests (16-bit codes, 1-bit codes, one
+   symbol), from aligned and unaligned symbol buffers; the count words equal
+   the blocks' bit counts.
 3. Phase B, the video main path at full size: host encode of a 30-frame
    2048x1536 batch, ``prepare_shared`` on the card, one launch through
    ``decode_shared_step(raw=True)``, ``frames_from_raw``, for synthetic and
@@ -31,11 +35,19 @@ Phases (any failure exits nonzero and prints no result):
    (must not); ``decode_shared_step_checked`` on the 30x2048x1536 batch at
    8x8 and 16x16, clean and with a flipped bit, its mask equal to the plain
    version's.
-   Each kernel's launch count is set to 0 just before phases B and C and
-   must match the decodes each made.
-5. Times, with CUDA events over distinct staged inputs: B1 with and without
+5. Phase D, the device encode at full size: ``encode_symbols_hybrid`` on
+   the card for the 1-D delta payloads of the 30x2048x1536 synthetic and
+   photo batches, each also with a 17-symbol tail, byte-equal to the host
+   encoder; each stream written as MHTV and decoded back by ``decode_video``
+   on the card (CRC-checked, equal to the frames).
+   Every kernel's launch count is set to 0 just before phases B, C and D and
+   must match the decodes and encodes each made.
+6. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
-   30x2048x1536 batch; one ``decode_image`` of the photo at 8x8 and 16x16.
+   30x2048x1536 batch; B3 and its plain version on that batch's payload,
+   and on the host's clock the host encoder, the row merge, the rows'
+   device-to-host copy and the whole hybrid encode; one ``decode_image`` of
+   the photo at 8x8 and 16x16.
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``.
@@ -79,6 +91,11 @@ KERNELS = {
         "source": "metalhuffman_tpu_torch/csrc/decode_blocks.cu",
         "replaces": "metalhuffman_tpu/ops/decode_pallas.py:462",
     },
+    "encode_rows": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/encode_rows.cu",
+        "replaces": "metalhuffman_tpu/ops/encode_pallas.py:138",
+    },
 }
 # The least time the card could take: the larger of the bytes moved over the
 # HBM rate, and integer operations over the INT32 rate, from the
@@ -94,6 +111,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # Refills, stores, the precoder and the table's build are left out, so the
 # bound is a floor.
 OPS_PER_SYMBOL = 4
+# The same count for a minimal encode: the (code, width) lookup (1 load),
+# the shift of the accumulator by the width (1), the OR of the code (1) and
+# the advance of the bit count (1). Word stores are left out: a floor.
+ENCODE_OPS_PER_SYMBOL = 4
+HOST_ITERS = 5  # host-clock repetitions of each host stage of the encode
 AB_ROUNDS = 5
 
 
@@ -142,6 +164,73 @@ def flip_bit(stream, bit: int):
     code = stream.code_bytes.copy()
     code[bit // 8] ^= 128 >> (bit % 8)
     return dataclasses.replace(stream, code_bytes=code)
+
+
+def delta_payload(frames: np.ndarray) -> np.ndarray:
+    """The symbols ``encode_frames_shared`` encodes for (T, H, W) frames:
+    each frame's 8x8 blocks in raster order, 1-D delta per block, frames
+    concatenated."""
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.core import blocks
+
+    return np.concatenate([native.delta_encode(
+        blocks.image_to_blocks(f).ravel(), 64) for f in frames])
+
+
+def encoder_sets() -> list:
+    """Payloads shaped like the encoder tests' sets: frequencies 2^i for
+    24 symbols (16-bit codes), two symbols (1-bit codes, every block ends on
+    a word boundary), one symbol."""
+    rng = np.random.default_rng(7)
+    adv = np.repeat(np.arange(24, dtype=np.uint8), 2 ** np.arange(24))
+    rng.shuffle(adv)
+    return [
+        ("longcodes", adv[: adv.size // 64 * 64]),
+        ("two-sym", rng.choice([7, 200], size=64 * 130,
+                               p=[0.93, 0.07]).astype(np.uint8)),
+        ("constant", np.full(64 * 10 + 5, 9, np.uint8)),
+    ]
+
+
+def stage_encode(data: np.ndarray, device):
+    """A payload's whole blocks and canonical table on ``device``, as
+    ``encode_symbols_hybrid`` stages them -> (symbols, table, bits per
+    block, wmax)."""
+    import torch
+
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    widths, codes = encode_cuda.canonical_table(data)
+    body = data[: data.size // 64 * 64].reshape(-1, 64)
+    bits = encode_cuda.block_bits(body, widths)
+    return (torch.from_numpy(body).to(device),
+            torch.from_numpy(encode_cuda.code_table(widths, codes)).to(device),
+            bits, int(bits.max()) // 32 + 2)
+
+
+def same_stream(a, b) -> bool:
+    """Two EncodedStreams hold the same symbols count and the same arrays,
+    value and type."""
+    return a.num_symbols == b.num_symbols and all(
+        getattr(a, f).dtype == getattr(b, f).dtype
+        and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("widths", "code_bytes", "block_offsets"))
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+
+    for counts in (decode_cuda.launches, encode_cuda.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since the last ``reset_launches``."""
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+
+    return {**decode_cuda.launches, **encode_cuda.launches}
 
 
 def build() -> None:
@@ -203,16 +292,13 @@ def phase_a_end_bits(device) -> int:
     block_end_targets with the exact last end; returns the max abs error."""
     import torch
 
-    from metalhuffman_tpu_torch import native
-    from metalhuffman_tpu_torch.core import blocks
     from metalhuffman_tpu_torch.models import frame_stream as fs
     from metalhuffman_tpu_torch.ops import decode_cuda
 
     t, h, w = 2, FULL[1], FULL[2]
     frames = synthetic(t, h, w)
     stream = fs.encode_frames_shared(frames)
-    payload = np.concatenate([native.delta_encode(
-        blocks.image_to_blocks(f).ravel(), 64) for f in frames])
+    payload = delta_payload(frames)
     total_bits = int(stream.widths.astype(np.int64)[payload].sum())
     prep = fs.prepare_shared(stream, t, h, w, device=device)
     args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
@@ -279,12 +365,43 @@ def phase_a_blocks(device) -> int:
     return worst
 
 
-def phase_b(device) -> int:
-    """The video main path at full size; returns the B1 launches it made."""
+def phase_a_encode(device) -> int:
+    """B3 against its plain version, every row word and count word, from
+    aligned and unaligned symbol buffers; returns the max absolute word
+    difference (must be 0)."""
+    import torch
+
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    cases = [("delta 2048x1536", delta_payload(synthetic(1, *FULL[1:]))),
+             ("delta 1920x1080", delta_payload(synthetic(1, *HD[1:]))),
+             *encoder_sets()]
+    worst = 0
+    for name, data in cases:
+        sym, tab, bits, wmax = stage_encode(data, device)
+        plain = encode_cuda.encode_rows_plain(sym, tab, wmax=wmax).long()
+        # the kernel's byte-load path: the same blocks one byte into a buffer
+        buf = torch.empty(sym.numel() + 1, dtype=torch.uint8, device=device)
+        buf[1:] = sym.view(-1)
+        for src in (sym, buf[1:].view(-1, 64)):
+            rows = encode_cuda.encode_rows(src, tab, wmax=wmax)
+            err = int((rows.long() - plain).abs().max())
+            worst = max(worst, err)
+            check(err == 0, f"phase A B3 {name}: kernel differs from plain "
+                  f"by {err}")
+            check(np.array_equal(rows[:, wmax].cpu().numpy(), bits),
+                  f"phase A B3 {name}: count words differ from the bit counts")
+        print(f"phase A ok: B3 {name}: {sym.shape[0]} blocks, wmax {wmax}: "
+              "kernel == plain from aligned and unaligned symbols, count "
+              "words == bit counts")
+    return worst
+
+
+def phase_b(device) -> dict:
+    """The video main path at full size; returns the launches it made."""
     from metalhuffman_tpu_torch import decode_video
     from metalhuffman_tpu_torch.models import frame_stream as fs
     from metalhuffman_tpu_torch.models.config import CodecConfig
-    from metalhuffman_tpu_torch.ops import decode_cuda
 
     t, h, w = FULL
     synth = synthetic(t, h, w)
@@ -300,8 +417,7 @@ def phase_b(device) -> int:
     blob = fs.write_shared(streams[0][3], t, h, w, CodecConfig(),
                            source_crc32=zlib.crc32(synth.tobytes()))
 
-    for name in decode_cuda.launches:
-        decode_cuda.launches[name] = 0
+    reset_launches()
     for name, frames, cfg, stream in streams:
         ft, fh, fw = frames.shape
         t0 = time.perf_counter()
@@ -319,11 +435,13 @@ def phase_b(device) -> int:
     check(np.array_equal(got, synth), "phase B decode_video: frames differ")
     print(f"phase B ok: decode_video MHTV ({len(blob)} B) CRC-checked, "
           f"{got.size} bytes equal")
-    counts = dict(decode_cuda.launches)
-    expected = {"decode_images": len(streams) + 1, "decode_blocks": 0}
+    counts = read_launches()
+    expected = {"decode_images": len(streams) + 1, "decode_blocks": 0,
+                "encode_rows": 0}
     check(counts == expected,
           f"phase B: kernel launches {counts}, expected {expected}")
-    return counts["decode_images"]
+    print(f"phase B launches: {counts}")
+    return counts
 
 
 def plain_mask(prep, cfg) -> np.ndarray:
@@ -352,7 +470,6 @@ def phase_c(device) -> dict:
     from metalhuffman_tpu_torch.models import frame_stream as fs
     from metalhuffman_tpu_torch.models.config import CodecConfig
     from metalhuffman_tpu_torch.models.image_codec import ImageCodec
-    from metalhuffman_tpu_torch.ops import decode_cuda
 
     img = photo()
     h, w = img.shape
@@ -364,10 +481,9 @@ def phase_c(device) -> dict:
     stream = codec.encode(img)
     batches = {bd: fs.encode_frames_shared(synth, CodecConfig(block_dim=bd))
                for bd in (8, 16)}
-    expected = {"decode_images": 0, "decode_blocks": 0}
+    expected = {"decode_images": 0, "decode_blocks": 0, "encode_rows": 0}
 
-    for name in decode_cuda.launches:
-        decode_cuda.launches[name] = 0
+    reset_launches()
     for bd, blob in blobs.items():
         t0 = time.perf_counter()
         got = mt.decode_image(blob, device=device)  # CRC-checked
@@ -449,16 +565,68 @@ def phase_c(device) -> dict:
               f"{bd}x{bd}: clean mask all false, frames equal; bit {bit} "
               f"flipped: {int(err.sum())} of {err.size} blocks flagged, "
               "equal to the plain version's mask")
-    counts = dict(decode_cuda.launches)
+    counts = read_launches()
     check(counts == expected,
           f"phase C: kernel launches {counts}, expected {expected}")
     print(f"phase C launches: {counts}")
     return counts
 
 
-def timed(label: str, fn, inputs, card: str, nbytes: int) -> float:
+def phase_d(device) -> dict:
+    """The device encode at full size: ``encode_symbols_hybrid`` on the card
+    against the host encoder, with and without a tail, then the stream back
+    through ``decode_video``; returns the launches it made, after checking
+    them against the calls."""
+    from metalhuffman_tpu_torch import decode_video, native
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    t, h, w = FULL
+    cases = []
+    for name, frames in (("synthetic", synthetic(t, h, w)),
+                         ("photo", photo_frames(h, w, t))):
+        payload = delta_payload(frames)
+        tailed = np.concatenate([payload, payload[:17]])
+        cases.append((name, frames, payload, native.encode_symbols(payload),
+                      tailed, native.encode_symbols(tailed)))
+
+    reset_launches()
+    for name, frames, payload, host, tailed, host_tailed in cases:
+        t0 = time.perf_counter()
+        stream = encode_cuda.encode_symbols_hybrid(payload, device=device)
+        dt = time.perf_counter() - t0
+        check(same_stream(stream, host),
+              f"phase D {name}: the device-encoded stream differs from the "
+              "host encoder's")
+        check(same_stream(encode_cuda.encode_symbols_hybrid(
+            tailed, device=device), host_tailed),
+            f"phase D {name} + 17-symbol tail: the stream differs from the "
+            "host encoder's")
+        blob = fs.write_shared(stream, t, h, w,
+                               source_crc32=zlib.crc32(frames.tobytes()))
+        got = decode_video(blob, device)
+        check(np.array_equal(got, frames),
+              f"phase D {name}: decode_video of the device-encoded stream "
+              "differs from the frames")
+        print(f"phase D ok: encode_symbols_hybrid {name} 30x2048x1536 delta "
+              f"({payload.size} symbols, {stream.code_bytes.size} code "
+              f"bytes) == host encoder, and with a 17-symbol tail; "
+              f"decode_video of it CRC-checked, equal to the frames; "
+              f"encode call {dt:.3f} s")
+    counts = read_launches()
+    expected = {"decode_images": len(cases), "decode_blocks": 0,
+                "encode_rows": 2 * len(cases)}
+    check(counts == expected,
+          f"phase D: kernel launches {counts}, expected {expected}")
+    print(f"phase D launches: {counts}")
+    return counts
+
+
+def timed(label: str, fn, inputs, card: str, nbytes: int,
+          unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
-    with CUDA events; prints it beside the card."""
+    with CUDA events; prints it, as ``nbytes`` per call in GB/s ``unit``,
+    beside the card."""
     import torch
 
     for x in inputs:  # warm up
@@ -477,22 +645,50 @@ def timed(label: str, fn, inputs, card: str, nbytes: int) -> float:
     med = times[len(times) // 2]
     print(f"time {label}: median {med:.4f} ms over {len(times)} calls "
           f"(min {times[0]:.4f}, max {times[-1]:.4f}), "
-          f"{nbytes / med / 1e6:.3f} GB/s decoded, on {card}")
+          f"{nbytes / med / 1e6:.3f} GB/s {unit}, on {card}")
     return med
 
 
-def bound(label: str, prep, n_symbols: int) -> tuple[float, str]:
-    """(least ms, what binds) for a decode of a staged batch, printed with
-    both terms: every input byte read once and every output byte written
-    once, or OPS_PER_SYMBOL integer operations per symbol."""
-    nbytes = 4 * prep.words.numel() + 4 * prep.offsets.numel() + 256 + n_symbols
+def host_timed(label: str, fn, inputs, card: str, nbytes: int) -> float:
+    """Median ms of ``fn`` over HOST_ITERS calls cycling over ``inputs``, on
+    the host's clock, each call ended by a device synchronize; prints it, as
+    ``nbytes`` per call in GB/s, beside the card."""
+    import torch
+
+    fn(inputs[0])  # warm up
+    times = []
+    for i in range(HOST_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    med = times[len(times) // 2]
+    print(f"time {label}: median {med:.4f} ms over {len(times)} calls "
+          f"(min {times[0]:.4f}, max {times[-1]:.4f}), "
+          f"{nbytes / med / 1e6:.3f} GB/s, host clock, on {card}")
+    return med
+
+
+def roofline(label: str, nbytes: int, n_ops: int) -> tuple[float, str]:
+    """(least ms, what binds), printed with both terms: ``nbytes`` over the
+    HBM rate, or ``n_ops`` integer operations over the INT32 rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_symbols * OPS_PER_SYMBOL / INT32_OPS_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
     by = "bytes" if by_bytes >= by_ops else "operations"
     print(f"bound {label}: {max(by_bytes, by_ops):.4f} ms ({by}; bytes "
-          f"{nbytes} -> {by_bytes:.4f} ms, operations "
-          f"{n_symbols * OPS_PER_SYMBOL} -> {by_ops:.4f} ms)")
+          f"{nbytes} -> {by_bytes:.4f} ms, operations {n_ops} -> "
+          f"{by_ops:.4f} ms)")
     return max(by_bytes, by_ops), by
+
+
+def bound(label: str, prep, n_symbols: int) -> tuple[float, str]:
+    """(least ms, what binds) for a decode of a staged batch: every input
+    byte read once and every output byte written once, or OPS_PER_SYMBOL
+    integer operations per symbol."""
+    nbytes = 4 * prep.words.numel() + 4 * prep.offsets.numel() + 256 + n_symbols
+    return roofline(label, nbytes, n_symbols * OPS_PER_SYMBOL)
 
 
 def staged_batches(device, cfg):
@@ -606,6 +802,83 @@ def timings(device, card: str) -> dict:
                                             bound_by=by)
         del preps
     return entries
+
+
+def encode_timings(device, card: str) -> dict:
+    """Times of B3 and its plain version on the 30x2048x1536 synthetic
+    payload, after holding the kernel word-equal to its plain version on
+    every staged input, and of the hybrid encode's host stages on the
+    host's clock; returns B3's JSON entry (launches left 0)."""
+    import torch
+
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    payload = delta_payload(synthetic(*FULL))
+    n = payload.size
+    # distinct inputs in distinct buffers: the payload rolled by whole
+    # blocks (one table, one wmax, the blocks in another order)
+    payloads = [np.roll(payload, 64 * 4096 * v) for v in range(VARIANTS)]
+    staged = [stage_encode(p, device) for p in payloads]
+    wmax = staged[0][3]
+    check(all(st[3] == wmax for st in staged), "timed inputs: wmax differs")
+
+    def b3(st):
+        return encode_cuda.encode_rows(st[0], st[1], wmax=st[3])
+
+    def b3_plain(st):
+        return encode_cuda.encode_rows_plain(st[0], st[1], wmax=st[3])
+
+    worst = 0
+    for v, st in enumerate(staged):
+        rows = b3(st)
+        err = int((rows.long() - b3_plain(st).long()).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"timed B3 input {v}: kernel differs from plain by "
+              f"{err}")
+        check(np.array_equal(rows[:, wmax].cpu().numpy(), st[2]),
+              f"timed B3 input {v}: count words differ from the bit counts")
+    nb = staged[0][0].shape[0]
+    print(f"full-size check ok: B3 == plain on {VARIANTS} staged "
+          f"30x2048x1536 payloads ({nb} blocks, wmax {wmax})")
+    ms = timed("B3 kernel encode_rows 30x2048x1536", b3, staged, card, n,
+               "encoded")
+    plain_ms = timed("B3 plain 30x2048x1536", b3_plain, staged, card, n,
+                     "encoded")
+    # symbols in, the 1 KB table in, rows out
+    bms, by = roofline("B3 30x2048x1536", n + 1024 + 4 * nb * (wmax + 1),
+                       n * ENCODE_OPS_PER_SYMBOL)
+
+    # the host encoder; the hybrid's stages, each alone; the whole call
+    host_timed("host MT encode (native.encode_symbols) 30x2048x1536",
+               native.encode_symbols, payloads, card, n)
+    host_timed("hybrid step: histogram and canonical table 30x2048x1536",
+               encode_cuda.canonical_table, payloads, card, n)
+    widths = encode_cuda.canonical_table(payload)[0]
+    host_timed("hybrid step: per-block bit counts 30x2048x1536",
+               lambda p: encode_cuda.block_bits(p.reshape(-1, 64), widths),
+               payloads, card, n)
+    host_timed("hybrid step: symbols host-to-device copy 30x2048x1536",
+               lambda p: torch.from_numpy(p.reshape(-1, 64)).to(device),
+               payloads, card, n)
+    rows_dev = [b3(st) for st in staged]
+
+    def fetch(rows):  # as encode_symbols_hybrid fetches them
+        return rows[:, :wmax].contiguous().cpu()
+
+    fetch_ms = host_timed("B3 rows device-to-host copy 30x2048x1536", fetch,
+                          rows_dev, card, n)
+    print(f"  (the copy moves {4 * nb * wmax} bytes: "
+          f"{4 * nb * wmax / fetch_ms / 1e6:.3f} GB/s)")
+    merge_in = [(fetch(r).numpy().view(np.uint32), st[2])
+                for r, st in zip(rows_dev, staged)]
+    host_timed("row merge (native.merge_rows) 30x2048x1536",
+               lambda x: native.merge_rows(*x), merge_in, card, n)
+    host_timed("whole encode_symbols_hybrid 30x2048x1536",
+               lambda p: encode_cuda.encode_symbols_hybrid(p, device=device),
+               payloads, card, n)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
 
 
 def image_timings(device, card: str) -> None:
@@ -746,16 +1019,17 @@ def main(argv: list[str]) -> int:
     ])
     max_err = max(max_err, phase_a_end_bits(device))
     b2_err = phase_a_blocks(device)
-    b1_launches = phase_b(device)
-    print(f"phase B launches: decode_images {b1_launches}")
-    launches = phase_c(device)
-    launches["decode_images"] += b1_launches
+    b3_err = phase_a_encode(device)
+    launches = dict.fromkeys(KERNELS, 0)
+    for phase in (phase_b, phase_c, phase_d):
+        for name, count in phase(device).items():
+            launches[name] += count
     entries = timings(device, card)
+    entries["encode_rows"] = encode_timings(device, card)
     image_timings(device, card)
-    entries["decode_images"]["max_abs_err"] = max(
-        max_err, entries["decode_images"]["max_abs_err"])
-    entries["decode_blocks"]["max_abs_err"] = max(
-        b2_err, entries["decode_blocks"]["max_abs_err"])
+    for name, err in (("decode_images", max_err), ("decode_blocks", b2_err),
+                      ("encode_rows", b3_err)):
+        entries[name]["max_abs_err"] = max(err, entries[name]["max_abs_err"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

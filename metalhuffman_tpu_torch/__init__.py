@@ -9,12 +9,15 @@ use). It imports no JAX and nothing of the JAX package.
 - ``ops.decode_cuda``: the decode kernels (8x8 images, packed blocks of
   2/4/8/16), their plain PyTorch versions, the stream staging and the
   end-bit integrity check.
+- ``ops.encode_cuda``: the hybrid device encoder
+  (``encode_symbols_hybrid``): the row-packing kernel for 8x8 blocks, its
+  plain PyTorch version, and the host row merge and tail.
 - ``models.frame_stream``: shared-table (MHTV) video encode, container I/O,
   batched and checked decode.
 - ``models.image_codec``: the single-image codec (MHT1), region decode.
 
-Every entry point decodes on the card unless the caller passes
-``device="cpu"``.
+Every entry point decodes (and the hybrid encoder packs) on the card unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

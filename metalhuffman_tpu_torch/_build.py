@@ -26,9 +26,14 @@ CSRC = Path(__file__).parent / "csrc"
 KERNELS = {
     "decode_images": CSRC / "decode_images.cu",
     "decode_blocks": CSRC / "decode_blocks.cu",
+    "encode_rows": CSRC / "encode_rows.cu",
 }
-#: included by every kernel source, so part of every kernel's hash
-HEADERS = (CSRC / "decode_common.cuh",)
+#: the headers each kernel source includes, part of its library's hash
+HEADERS = {
+    "decode_images": (CSRC / "decode_common.cuh",),
+    "decode_blocks": (CSRC / "decode_common.cuh",),
+    "encode_rows": (),
+}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "metalhuffman_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +51,8 @@ _ARGTYPES = {
     # mode, out, end (NULL: no end bits), stream
     "decode_blocks": [_ptr, _i64, _ptr, _i64, _int, *_TABLE, _ptr, _int,
                       _ptr, _ptr, _ptr],
+    # symbols, n_blocks, table, wmax, rows, stream
+    "encode_rows": [_ptr, _i64, _ptr, _int, _ptr, _ptr],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -102,7 +109,8 @@ def compile_all(jobs) -> None:
 
 def library_path(name: str) -> Path:
     """Content-hashed path of kernel ``name``'s library."""
-    return hashed_path(f"libmht_{name}", NVCC_FLAGS, (KERNELS[name], *HEADERS))
+    return hashed_path(f"libmht_{name}", NVCC_FLAGS,
+                       (KERNELS[name], *HEADERS[name]))
 
 
 def build() -> dict[str, Path]:
@@ -137,3 +145,15 @@ def lib(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = dll
     return _LIBS[name]
+
+
+def launch(name: str, device, *args) -> None:
+    """Call kernel ``name``'s C entry ``mht_<name>(*args, stream)`` on the
+    current stream of CUDA ``device``; raise if it reports a CUDA error."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib(name), f"mht_{name}")(*args, stream)
+    if err:
+        raise RuntimeError(f"mht_{name} launch failed: CUDA error {err}")

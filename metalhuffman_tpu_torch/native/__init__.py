@@ -1,8 +1,10 @@
 """The port's host C++ encoder (``src/mht_codec.cpp``) with ctypes bindings.
 
-A copy of the encode half of ``metalhuffman_tpu/native``: canonical Huffman
-encode (serial and multithreaded) and the per-block 1-D and 2-D delta
-precoders, byte-identical to the original (tests hold them equal). g++
+A copy of the encode half of ``metalhuffman_tpu/native``: the canonical
+table (:func:`code_lengths`, :func:`canonical_codes`), canonical Huffman
+encode (serial and multithreaded), the row merge of the hybrid device
+encoder (:func:`merge_rows`) and the per-block 1-D and 2-D delta precoders,
+byte-identical to the original (tests hold them equal). g++
 builds the library at first use into a content-hashed ``.so`` under
 ``build/metalhuffman_tpu_torch/`` (:mod:`.._build`). There is no NumPy
 fallback: a missing g++ or a failed build raises with the compiler's output.
@@ -49,14 +51,21 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         i64 = ctypes.c_int64
         u8p = ctypes.POINTER(ctypes.c_uint8)
-        enc = [u8p, i64, i64, u8p, u8p, i64, ctypes.POINTER(i64),
-               ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(i64)]
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        enc = [u8p, i64, i64, u8p, u8p, i64, ctypes.POINTER(i64), u32p,
+               ctypes.POINTER(i64)]
+        lib.mht_code_lengths.argtypes = [ctypes.POINTER(i64), u8p]
+        lib.mht_canonical_codes.argtypes = [u8p, ctypes.POINTER(ctypes.c_uint16)]
         lib.mht_encode.argtypes = enc
         lib.mht_encode_mt.argtypes = enc + [ctypes.c_int]
+        lib.mht_merge_rows.argtypes = [u32p, u32p, i64, i64, u8p, i64,
+                                       ctypes.POINTER(i64), u32p,
+                                       ctypes.POINTER(i64), ctypes.c_int]
         lib.mht_delta_encode.argtypes = [u8p, i64, i64, u8p]
         lib.mht_delta2d_encode.argtypes = [u8p, i64, i64, u8p]
-        for fn in (lib.mht_encode, lib.mht_encode_mt, lib.mht_delta_encode,
-                   lib.mht_delta2d_encode):
+        for fn in (lib.mht_code_lengths, lib.mht_canonical_codes,
+                   lib.mht_encode, lib.mht_encode_mt, lib.mht_merge_rows,
+                   lib.mht_delta_encode, lib.mht_delta2d_encode):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -64,6 +73,38 @@ def _lib() -> ctypes.CDLL:
 
 def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _u32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+#: the error of an encode whose stream would need bit offsets past 2^32
+OVERFLOW_ERROR = ("stream exceeds 2^32 bits — u32 block offsets overflow; "
+                  "split the input (e.g. per-frame or segmented MHTV)")
+
+
+def code_lengths(freqs: np.ndarray) -> np.ndarray:
+    """(256,) symbol frequencies -> (256,) uint8 Huffman code lengths (<= 16;
+    0 for an absent symbol)."""
+    freqs = np.ascontiguousarray(freqs, dtype=np.int64)
+    widths = np.zeros(256, dtype=np.uint8)
+    rc = _lib().mht_code_lengths(
+        freqs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _u8p(widths))
+    if rc:
+        raise RuntimeError(f"mht_code_lengths failed: {rc}")
+    return widths
+
+
+def canonical_codes(widths: np.ndarray) -> np.ndarray:
+    """(256,) code lengths -> (256,) uint16 left-justified canonical codes."""
+    widths = np.ascontiguousarray(widths, dtype=np.uint8)
+    codes = np.zeros(256, dtype=np.uint16)
+    rc = _lib().mht_canonical_codes(
+        _u8p(widths), codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+    if rc:
+        raise RuntimeError(f"mht_canonical_codes failed: {rc}")
+    return codes
 
 
 def encode_symbols(data: np.ndarray, block_size: int = 64,
@@ -86,18 +127,14 @@ def encode_symbols(data: np.ndarray, block_size: int = 64,
     code_len = ctypes.c_int64()
     total_bits = ctypes.c_int64()
     args = (_u8p(data), data.size, block_size, _u8p(widths), _u8p(code_bytes),
-            capacity, ctypes.byref(code_len),
-            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            capacity, ctypes.byref(code_len), _u32p(offsets),
             ctypes.byref(total_bits))
     if n_threads == 1:
         rc = lib.mht_encode(*args)
     else:
         rc = lib.mht_encode_mt(*args, n_threads)
     if rc == -7:
-        raise ValueError(
-            "stream exceeds 2^32 bits — u32 block offsets overflow; "
-            "split the input (e.g. per-frame or segmented MHTV)"
-        )
+        raise ValueError(OVERFLOW_ERROR)
     if rc:
         raise RuntimeError(f"mht_encode failed: {rc}")
     # in-place shrink: releases the 2n worst-case tail without a copy
@@ -108,6 +145,42 @@ def encode_symbols(data: np.ndarray, block_size: int = 64,
         code_bytes=code_bytes,
         block_offsets=offsets[:n_blocks],
     )
+
+
+def merge_rows(rows: np.ndarray, block_bits: np.ndarray, n_threads: int = 0):
+    """Stage 2 of the hybrid device encoder: padded per-block word rows ->
+    (code_bytes incl. +2 pad, block_offsets u32, total_bits).
+
+    ``rows`` is (n_blocks, row_words) uint32: each block's MSB-first packed
+    bits as big-endian-semantic words, zero-padded (the stage-1 kernel's
+    output without its count word). ``block_bits`` is the (n_blocks,) bit
+    count of each block. Multithreaded bit-shift memcpy on the host
+    (``n_threads`` 0 = hardware concurrency); the output is byte-identical to
+    :func:`encode_symbols` packing the same symbols, for any thread count.
+    """
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    block_bits = np.ascontiguousarray(block_bits, dtype=np.uint32)
+    n_blocks, row_words = rows.shape
+    if block_bits.shape != (n_blocks,):
+        raise ValueError("block_bits must be (n_blocks,)")
+    capacity = (int(block_bits.astype(np.int64).sum()) + 7) // 8 + 16
+    code_bytes = np.zeros(capacity, dtype=np.uint8)
+    offsets = np.zeros(n_blocks, dtype=np.uint32)
+    code_len = ctypes.c_int64()
+    total_bits = ctypes.c_int64()
+    rc = _lib().mht_merge_rows(
+        _u32p(rows), _u32p(block_bits), n_blocks, row_words,
+        _u8p(code_bytes), capacity, ctypes.byref(code_len), _u32p(offsets),
+        ctypes.byref(total_bits), n_threads)
+    if rc == -7:
+        raise ValueError(OVERFLOW_ERROR)
+    if rc == -2:
+        raise RuntimeError(
+            f"mht_merge_rows failed: {rc} (a row of {row_words} words is too "
+            "short for its block's bit count)")
+    if rc:
+        raise RuntimeError(f"mht_merge_rows failed: {rc}")
+    return code_bytes[: code_len.value], offsets, total_bits.value
 
 
 def delta_encode(data: np.ndarray, block_size: int = 64) -> np.ndarray:

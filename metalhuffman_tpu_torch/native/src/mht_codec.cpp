@@ -3,7 +3,8 @@
 // The encode half of metalhuffman_tpu/native/src/mht_codec.cpp, copied: the
 // canonical Huffman length assignment (heap Huffman + package-merge cap 16),
 // canonical code generation, MSB-first bit packing with per-block offsets
-// (serial and multithreaded), and the per-block 1-D and 2-D delta precoders.
+// (serial and multithreaded), the row merge of the hybrid device encoder, and
+// the per-block 1-D and 2-D delta precoders.
 // The decoders and the fixed-table entry of the original are not copied: the
 // port decodes on the device. Tests hold every output byte-equal to the
 // original's.
@@ -159,6 +160,12 @@ int mht_code_lengths(const int64_t* freqs, uint8_t* widths_out) {
   for (int s = 0; s < kNumSymbols; ++s) max_w = std::max(max_w, (int)widths_out[s]);
   if (max_w > kMaxCodeLen)
     return package_merge_lengths(freqs, kMaxCodeLen, widths_out);
+  return 0;
+}
+
+// Left-justified 16-bit canonical codes from a 256-entry width table.
+int mht_canonical_codes(const uint8_t* widths, uint16_t* codes_out) {
+  canonical_codes_impl(widths, codes_out);
   return 0;
 }
 
@@ -533,6 +540,120 @@ int mht_encode_mt(const uint8_t* data, int64_t n, int64_t block_size,
   return encode_mt_impl(data, n, block_size, widths_out,
                         code_bytes_out, code_capacity, code_len_out,
                         block_offsets_out, total_bits_out, n_threads);
+}
+
+// Stage 2 of the hybrid device encoder: merge per-block padded word rows
+// (the stage-1 kernel's output, csrc/encode_rows.cu; each row = `row_words`
+// u32 words holding that block's MSB-first packed bits, zero-padded) into one
+// contiguous MSB-first byte stream with per-block bit offsets. This is the
+// memcpy-speed counterpart of mht_encode_mt's pass 2: the bits are already
+// packed per block, so the inner loop moves 32 bits per step instead of one
+// symbol. Seam handling is the same head-byte OR trick — a chunk whose
+// start bit is not byte-aligned diverts its first (shared) byte into a side
+// slot merged serially after the join.
+//
+// Counterpart of the reference's single-threaded append encoder
+// (HuffmanEncoder.cpp:211-276) for streams packed block-parallel on device.
+int mht_merge_rows(const uint32_t* rows, const uint32_t* block_bits,
+                   int64_t n_blocks, int64_t row_words,
+                   uint8_t* code_bytes_out, int64_t code_capacity,
+                   int64_t* code_len_out, uint32_t* block_offsets_out,
+                   int64_t* total_bits_out, int n_threads) {
+  if (n_blocks <= 0 || row_words <= 0) return -1;
+  // serial prefix sum: absolute bit offset of every block
+  std::vector<int64_t> offs(n_blocks + 1);
+  offs[0] = 0;
+  for (int64_t b = 0; b < n_blocks; ++b) {
+    if ((block_bits[b] + 31) / 32 > static_cast<uint64_t>(row_words))
+      return -2;  // row too short for its bit count
+    offs[b + 1] = offs[b] + block_bits[b];
+  }
+  const int64_t total_bits = offs[n_blocks];
+  if (total_bits >= (1LL << 32)) return -7;  // u32 offsets overflow
+  for (int64_t b = 0; b < n_blocks; ++b)
+    block_offsets_out[b] = static_cast<uint32_t>(offs[b]);
+  const int64_t total_bytes = (total_bits + 7) / 8 + 2;  // +2 read-ahead pad
+  if (total_bytes > code_capacity) return -3;
+  std::memset(code_bytes_out, 0, total_bytes);
+
+  if (n_threads <= 0)
+    n_threads = std::max(1u, std::thread::hardware_concurrency());
+  const int64_t per = (n_blocks + n_threads - 1) / std::max(1, n_threads);
+  const int nc = static_cast<int>((n_blocks + per - 1) / per);
+
+  std::vector<uint8_t> head_byte(nc, 0);
+  std::vector<std::thread> ths;
+  for (int t = 0; t < nc; ++t) {
+    ths.emplace_back([&, t]() {
+      const int64_t blo = t * per;
+      const int64_t bhi = std::min<int64_t>(n_blocks, blo + per);
+      int64_t bit_pos = offs[blo];
+      // 128-bit accumulator: append up to 64 bits (two row words) per step
+      // and flush 8 output bytes at a time — ~2x fewer dependent shift ops
+      // per byte than a 64-bit acc with 32-bit flushes.
+      unsigned __int128 acc = 0;
+      int nbits = static_cast<int>(bit_pos & 7);  // lead-in zero bits
+      int64_t byte_pos = bit_pos >> 3;
+      bool first_partial = nbits != 0;
+      for (int64_t b = blo; b < bhi; ++b) {
+        const uint32_t* row = rows + b * row_words;
+        int64_t left = block_bits[b];
+        int64_t j = 0;
+        while (left > 0) {
+          if (left >= 64) {
+            const uint64_t two =
+                (static_cast<uint64_t>(row[j]) << 32) | row[j + 1];
+            acc = (acc << 64) | two;
+            nbits += 64;
+            left -= 64;
+            j += 2;
+          } else {
+            const int take = left >= 32 ? 32 : static_cast<int>(left);
+            acc = (acc << take) |
+                  (static_cast<uint64_t>(row[j]) >> (32 - take));
+            nbits += take;
+            left -= take;
+            ++j;
+          }
+          // flush whole bytes; invariant: byte_pos*8 + nbits == bits appended
+          if (first_partial && nbits >= 8) {
+            nbits -= 8;
+            head_byte[t] = static_cast<uint8_t>((acc >> nbits) & 0xFF);
+            first_partial = false;
+            ++byte_pos;
+          }
+          while (nbits >= 64) {
+            nbits -= 64;
+            const uint64_t be =
+                __builtin_bswap64(static_cast<uint64_t>(acc >> nbits));
+            std::memcpy(code_bytes_out + byte_pos, &be, 8);
+            byte_pos += 8;
+          }
+        }
+      }
+      while (nbits >= 8) {  // drain whole tail bytes
+        nbits -= 8;
+        code_bytes_out[byte_pos++] =
+            static_cast<uint8_t>((acc >> nbits) & 0xFF);
+      }
+      if (nbits > 0) {
+        const uint8_t byte = static_cast<uint8_t>(
+            (static_cast<uint32_t>(acc) << (8 - nbits)) & 0xFF);
+        if (first_partial)
+          head_byte[t] = byte;
+        else
+          code_bytes_out[byte_pos] = byte;
+      }
+    });
+  }
+  for (auto& th : ths) th.join();
+  for (int t = 0; t < nc; ++t) {
+    const int64_t start = offs[std::min<int64_t>(t * per, n_blocks)];
+    if (start & 7) code_bytes_out[start >> 3] |= head_byte[t];
+  }
+  *code_len_out = total_bytes;
+  *total_bits_out = total_bits;
+  return 0;
 }
 
 }  // extern "C"

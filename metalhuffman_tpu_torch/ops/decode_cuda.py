@@ -221,12 +221,7 @@ def _launch(name: str, words: torch.Tensor, *args) -> None:
     """Launch kernel ``name`` on the current stream of ``words``' device."""
     from .. import _build
 
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_build.lib(name), f"mht_{name}")(
-            words.data_ptr(), words.numel(), *args, stream)
-    if err:
-        raise RuntimeError(f"mht_{name} launch failed: CUDA error {err}")
+    _build.launch(name, words.device, words.data_ptr(), words.numel(), *args)
     launches[name] += 1
 
 

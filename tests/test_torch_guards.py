@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from metalhuffman_tpu_torch import _build, native
-from metalhuffman_tpu_torch.ops import decode_cuda
+from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -45,6 +45,13 @@ assert (out == frames).all()
 for bd in (4, 8):
     img = metalhuffman_tpu_torch.encode_image(frames[0], CodecConfig(block_dim=bd))
     assert (metalhuffman_tpu_torch.decode_image(img, device="cpu") == frames[0]).all()
+from metalhuffman_tpu_torch import native
+from metalhuffman_tpu_torch.ops import encode_cuda
+payload = np.repeat(frames.ravel(), 2)[:64 * 23 + 17]
+hybrid = encode_cuda.encode_symbols_hybrid(payload, device="cpu")
+host = native.encode_symbols(payload)
+assert (hybrid.code_bytes == host.code_bytes).all()
+assert (hybrid.block_offsets == host.block_offsets).all()
 assert not any(m == "jax" or m.startswith(("jax.", "metalhuffman_tpu."))
                or m == "metalhuffman_tpu" for m in sys.modules
                if sys.modules[m] is not None)
@@ -94,7 +101,8 @@ def test_build_targets_sm90a_under_build_dir():
     assert native.library_path().parent == _build.BUILD_DIR
     assert all(src.suffix == ".cu" and src.is_file()
                for src in _build.KERNELS.values())
-    assert all(h.is_file() for h in _build.HEADERS)
+    assert _build.HEADERS.keys() == _build.KERNELS.keys()
+    assert all(h.is_file() for hs in _build.HEADERS.values() for h in hs)
     for name, src in _build.KERNELS.items():
         assert f"mht_{name}(" in src.read_text()
 
@@ -138,6 +146,31 @@ def test_decode_images_off_cpu_raises_instead_of_plain():
     with pytest.raises(ValueError, match="meta"):
         decode_cuda.decode_blocks(*args, num_steps=16, delta=True)
     assert decode_cuda.launches == before
+
+
+def test_encode_rows_off_cpu_raises_instead_of_plain():
+    sym = torch.zeros((2, 64), dtype=torch.uint8, device="meta")
+    tab = torch.zeros(256, dtype=torch.int32, device="meta")
+    before = dict(encode_cuda.launches)
+    with pytest.raises(ValueError, match="meta"):
+        encode_cuda.encode_rows(sym, tab, wmax=4)
+    assert encode_cuda.launches == before
+
+
+def test_encode_rows_checks_its_inputs():
+    sym = torch.zeros((2, 64), dtype=torch.uint8)
+    tab = torch.zeros(256, dtype=torch.int32)
+    for bad in (sym.int(), sym.view(-1), torch.zeros((2, 16), dtype=torch.uint8),
+                torch.zeros((64, 2), dtype=torch.uint8).t()):
+        with pytest.raises(ValueError, match="symbols"):
+            encode_cuda.encode_rows(bad, tab, wmax=4)
+    for bad in (tab.long(), tab[:255], torch.zeros(512, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError, match="table"):
+            encode_cuda.encode_rows(sym, bad, wmax=4)
+    with pytest.raises(ValueError, match="table is on meta"):
+        encode_cuda.encode_rows(sym, tab.to("meta"), wmax=4)
+    with pytest.raises(ValueError, match="wmax"):
+        encode_cuda.encode_rows(sym, tab, wmax=0)
 
 
 def test_decode_images_checks_its_inputs():

@@ -25,7 +25,14 @@ def _payload(kind, n, seed=0):
     if kind == "skewed":  # a 16-bit-deep table: the package-merge cap
         f = np.array([int(1.618 ** k) + 1 for k in range(40)], float)
         return rng.choice(40, n, p=f / f.sum()).astype(np.uint8)
+    if kind == "longcodes":  # frequencies 2^i: package-merge caps at 16
+        counts = 2 ** np.arange(24)
+        return rng.permutation(np.repeat(np.arange(24, dtype=np.uint8),
+                                         counts))[:n]
     return np.full(n, 77, np.uint8)  # one symbol: a lone 1-bit code
+
+
+KINDS = ["random", "skewed", "longcodes", "one-symbol"]
 
 
 @pytest.mark.parametrize("threads", [1, 0], ids=["serial", "mt"])
@@ -172,3 +179,73 @@ def test_encode_rejects_empty_input_as_jax_does():
     for enc in (native.encode_symbols, jnative.encode_symbols):
         with pytest.raises(ValueError, match="empty"):
             enc(np.zeros(0, np.uint8))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_canonical_table_matches_jax(kind):
+    freqs = np.bincount(_payload(kind, 1 << 24, seed=40), minlength=256)
+    widths = native.code_lengths(freqs)
+    np.testing.assert_array_equal(widths, jnative.code_lengths(freqs))
+    assert widths.dtype == np.uint8 and widths.max() <= 16
+    codes = native.canonical_codes(widths)
+    np.testing.assert_array_equal(codes, jnative.canonical_codes(widths))
+    assert codes.dtype == np.uint16
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pack_bits_matches_jax(kind):
+    data = _payload(kind, 1000, seed=41)
+    widths = jnative.code_lengths(np.bincount(data, minlength=256))
+    codes = jnative.canonical_codes(widths)
+    packed, offs = bitstream.pack_bits(data, codes, widths)
+    ref_packed, ref_offs = jbitstream.pack_bits(data, codes, widths)
+    np.testing.assert_array_equal(packed, ref_packed)
+    np.testing.assert_array_equal(offs, ref_offs)
+    assert offs.dtype == ref_offs.dtype == np.uint64
+    np.testing.assert_array_equal(bitstream.symbol_bit_offsets(data, widths),
+                                  jbitstream.symbol_bit_offsets(data, widths))
+    with pytest.raises(ValueError, match="zero code width"):
+        bitstream.pack_bits(np.array([3, 4], np.uint8), codes,
+                            np.zeros(256, np.uint8))
+
+
+def _rows(data, row_words=None):
+    """Per-block padded word rows of ``data`` (whole 64-symbol blocks),
+    packed by the JAX package's NumPy packer, and the block bit counts."""
+    widths = jnative.code_lengths(np.bincount(data, minlength=256))
+    codes = jnative.canonical_codes(widths)
+    body = data.reshape(-1, 64)
+    bits = widths[body].astype(np.uint32).sum(1, dtype=np.uint32)
+    row_words = row_words or int(bits.max()) // 32 + 2
+    rows = np.zeros((body.shape[0], row_words), np.uint32)
+    for b, blk in enumerate(body):
+        packed, _ = jbitstream.pack_bits(blk, codes, widths)
+        w = jbitstream.bytes_to_be_words(packed, pad_words=2)[:row_words]
+        rows[b, : w.size] = w
+    return rows, bits
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_merge_rows_matches_jax(kind, threads):
+    data = _payload(kind, 64 * 301, seed=42)
+    rows, bits = _rows(data)
+    code, offsets, total = native.merge_rows(rows, bits, threads)
+    ref_code, ref_offsets, ref_total = jnative.merge_rows(rows, bits, threads)
+    np.testing.assert_array_equal(code, ref_code)
+    np.testing.assert_array_equal(offsets, ref_offsets)
+    assert offsets.dtype == np.uint32 and total == ref_total
+    ref = jnative.encode_symbols(data, 64)
+    np.testing.assert_array_equal(code, ref.code_bytes)
+    np.testing.assert_array_equal(offsets, ref.block_offsets)
+
+
+def test_merge_rows_raises_on_a_row_too_short():
+    rows = np.zeros((2, 1), np.uint32)
+    bits = np.array([40, 40], np.uint32)  # 40 bits need 2 words
+    with pytest.raises(RuntimeError, match="too short"):
+        native.merge_rows(rows, bits)
+    with pytest.raises(RuntimeError):
+        jnative.merge_rows(rows, bits)
+    with pytest.raises(ValueError, match="n_blocks"):
+        native.merge_rows(rows, bits[:1])
