@@ -8,7 +8,7 @@ the CUDA toolkit (nvcc) and g++:
 
 Phases (any failure exits nonzero and prints no result):
 
-1. Build the three CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
+1. Build the six CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source, in parallel) and the host C++
    codec (g++), and print the build time and ptxas's register, shared-memory
    and spill lines.
@@ -40,14 +40,25 @@ Phases (any failure exits nonzero and prints no result):
    photo batches, each also with a 17-symbol tail, byte-equal to the host
    encoder; each stream written as MHTV and decoded back by ``decode_video``
    on the card (CRC-checked, equal to the frames).
-   Every kernel's launch count is set to 0 just before phases B, C and D and
-   must match the decodes and encodes each made.
-6. Times, with CUDA events over distinct staged inputs: B1 with and without
+6. Phase E, the probes of B1 (``metalhuffman_tpu_torch.probes``), each
+   against its plain version, tolerance 0: S1 (``decode_strips``) and every
+   S2 variant (``ablate_decode``) on 2x2048x1536 and 1x1920x1080 photo and
+   synthetic frames (also against the frames), on the 16-bit-code table of
+   the encoder tests and on a table of 128 secondary lookup tables (the
+   ``lut`` variant's T2 read through L1); every S3 variant (``int16_rate``)
+   on 2^16 elements.
+   Every kernel's launch count is set to 0 just before phases B, C, D and E
+   and must match the decodes, encodes and probes each made.
+7. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch; B3 and its plain version on that batch's payload,
    and on the host's clock the host encoder, the row merge, the rows'
    device-to-host copy and the whole hybrid encode; one ``decode_image`` of
-   the photo at 8x8 and 16x16.
+   the photo at 8x8 and 16x16; B1, S1 and every S2 variant in interleaved
+   rounds on 4 staged 30x2048x1536 photo batches and 4 synthetic ones (one
+   table each), each held equal to its plain version there first; every S3
+   variant and its plain version on 2^22 elements, and the SASS opcodes of
+   the S3 kernels.
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``.
@@ -65,7 +76,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 import traceback
@@ -74,12 +84,15 @@ from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
+from metalhuffman_tpu_torch import probes
+from metalhuffman_tpu_torch.utils.fixtures import (  # noqa: F401
+    photo, photo_frames, synthetic, synthetic_frame)
+
 FULL = (30, 1536, 2048)  # (T, H, W): 94.4 MB decoded, 1,474,560 8x8 blocks
 HD = (30, 1080, 1920)
-PHOTO = ROOT / "tests" / "assets" / "bridge_2048x1536.png"
 TIMED_ITERS = 12
 VARIANTS = 4
+RATE_SMALL = 1 << 16  # S3 elements in phase E
 KERNELS = {
     "decode_images": {
         "route": "cuda",
@@ -96,13 +109,30 @@ KERNELS = {
         "source": "metalhuffman_tpu_torch/csrc/encode_rows.cu",
         "replaces": "metalhuffman_tpu/ops/encode_pallas.py:138",
     },
+    "decode_strips": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/decode_strips.cu",
+        "replaces": "scratch/kernel_strips.py:123",
+    },
+    "ablate_decode": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/ablate_decode.cu",
+        "replaces": "scratch/ablate_decode.py:223",
+    },
+    "int16_rate": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/int16_rate.cu",
+        "replaces": "scratch/int16_rate.py:39",
+    },
 }
 # The least time the card could take: the larger of the bytes moved over the
-# HBM rate, and integer operations over the INT32 rate, from the
-# H100 SXM data sheet and the Hopper white paper (132 SMs x 64 INT32 lanes
-# at the 1.98 GHz boost clock).
+# HBM rate, and integer operations over the rate the SMs issue them, from the
+# H100 SXM data sheet and the Hopper white paper: 132 SMs x 4 schedulers x 32
+# lanes at the 1.98 GHz boost clock. The INT32 pipe alone takes 64 lanes per
+# SM and clock, but integer adds and moves also issue to the FMA pipe as
+# IMAD: S3's int32 chain ran above 132 x 64 lanes x 1.98 GHz on the H100.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # Integer operations a minimal canonical decode needs per symbol, whatever
 # the kernel: with a left-justified bit window and one lookup table indexed
 # by the next 16 bits, a peek (1 shift), the lookup (1 load), the code width
@@ -126,37 +156,6 @@ class PhaseError(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
-
-
-def synthetic_frame(h: int, w: int, seed: int = 0, phase: int = 0) -> np.ndarray:
-    """Smooth gradients + mild noise (delta+Huffman compresses it to ~55%,
-    like a natural photo); ``phase`` pans the gradient between frames."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    base = 96 + 80 * np.sin((xx + 3 * phase) / 97.0) * np.cos(yy / 71.0) + xx * 0.01
-    img = base + rng.normal(0, 3.0, (h, w))
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def synthetic(t: int, h: int, w: int) -> np.ndarray:
-    return np.stack([synthetic_frame(h, w, seed=0, phase=i) for i in range(t)])
-
-
-def photo() -> np.ndarray:
-    """The committed 2048x1536 grayscale bridge photo, (1536, 2048) uint8."""
-    from PIL import Image
-
-    return np.asarray(Image.open(PHOTO).convert("L"))
-
-
-def photo_frames(h: int, w: int, t: int) -> np.ndarray:
-    """(T, H, W) photographic frames: the bridge photo, tiled to (H, W) and
-    panned 8 px per frame in both axes."""
-    img = photo()
-    reps = (-(-h // img.shape[0]), -(-w // img.shape[1]))
-    img = np.tile(img, reps)[:h, :w]
-    return np.stack([np.roll(img, (8 * i, 8 * i), axis=(0, 1))
-                     for i in range(t)])
 
 
 def flip_bit(stream, bit: int):
@@ -217,20 +216,30 @@ def same_stream(a, b) -> bool:
         for f in ("widths", "code_bytes", "block_offsets"))
 
 
+def launch_counts() -> tuple:
+    """The launch-count dicts of every kernel's wrapper module."""
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    from metalhuffman_tpu_torch.probes import ablate_decode, int16_rate, strips
+
+    return (decode_cuda.launches, encode_cuda.launches, strips.launches,
+            ablate_decode.launches, int16_rate.launches)
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
-
-    for counts in (decode_cuda.launches, encode_cuda.launches):
+    for counts in launch_counts():
         for name in counts:
             counts[name] = 0
 
 
 def read_launches() -> dict:
     """Every kernel's launch count since the last ``reset_launches``."""
-    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    return {name: n for counts in launch_counts() for name, n in counts.items()}
 
-    return {**decode_cuda.launches, **encode_cuda.launches}
+
+def expect(**counts) -> dict:
+    """Every kernel's expected launch count: ``counts``, else 0."""
+    return {**dict.fromkeys(KERNELS, 0), **counts}
 
 
 def build() -> None:
@@ -436,8 +445,7 @@ def phase_b(device) -> dict:
     print(f"phase B ok: decode_video MHTV ({len(blob)} B) CRC-checked, "
           f"{got.size} bytes equal")
     counts = read_launches()
-    expected = {"decode_images": len(streams) + 1, "decode_blocks": 0,
-                "encode_rows": 0}
+    expected = expect(decode_images=len(streams) + 1)
     check(counts == expected,
           f"phase B: kernel launches {counts}, expected {expected}")
     print(f"phase B launches: {counts}")
@@ -481,7 +489,7 @@ def phase_c(device) -> dict:
     stream = codec.encode(img)
     batches = {bd: fs.encode_frames_shared(synth, CodecConfig(block_dim=bd))
                for bd in (8, 16)}
-    expected = {"decode_images": 0, "decode_blocks": 0, "encode_rows": 0}
+    expected = expect()
 
     reset_launches()
     for bd, blob in blobs.items():
@@ -614,12 +622,113 @@ def phase_d(device) -> dict:
               f"decode_video of it CRC-checked, equal to the frames; "
               f"encode call {dt:.3f} s")
     counts = read_launches()
-    expected = {"decode_images": len(cases), "decode_blocks": 0,
-                "encode_rows": 2 * len(cases)}
+    expected = expect(decode_images=len(cases), encode_rows=2 * len(cases))
     check(counts == expected,
           f"phase D: kernel launches {counts}, expected {expected}")
     print(f"phase D launches: {counts}")
     return counts
+
+
+def wide_lut_stream(n_blocks: int):
+    """A stream under a table of 128 secondary lookup tables (one 1-bit
+    code, one 8-bit, 254 9-bit), too many for the ``lut`` variant's shared
+    memory, and uniform random symbols, so most codes escape to T2."""
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.core import bitstream, container
+
+    widths = np.full(256, 9, np.uint8)
+    widths[0], widths[1] = 1, 8
+    sym = np.random.default_rng(3).integers(0, 256, 64 * n_blocks).astype(
+        np.uint8)
+    packed, offs = bitstream.pack_bits(sym, native.canonical_codes(widths),
+                                       widths)
+    return container.EncodedStream(sym.size, widths, packed,
+                                   offs[:-1:64].astype(np.uint32))
+
+
+def probe_cases(device) -> list:
+    """Phase E's decode inputs -> [(name, prep, lut tables, frames or None)]."""
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.probes import ablate_decode
+
+    cases = []
+    for content in ("photo", "synthetic"):
+        for t, h, w in ((2, *FULL[1:]), (1, *HD[1:])):
+            frames = (photo_frames(h, w, t) if content == "photo"
+                      else synthetic(t, h, w))
+            cases.append((f"{content} {t}x{w}x{h}", frames,
+                          fs.encode_frames_shared(frames), (t, h, w)))
+    # whole streams as one row of blocks: 1 frame of 8 x 8*nb pixels
+    for name, stream in (("16-bit codes (encoder sets' longcodes)",
+                          native.encode_symbols(encoder_sets()[0][1])),
+                         ("128 T2 tables", wide_lut_stream(8192))):
+        cases.append((name, None, stream,
+                      (1, 8, 8 * stream.block_offsets.size)))
+    return [(name, fs.prepare_shared(stream, *geo, device=device),
+             ablate_decode.lut_tables(stream.widths, device), frames)
+            for name, frames, stream, geo in cases]
+
+
+def phase_e(device) -> tuple[dict, dict]:
+    """The probes of B1 against their plain versions (and S1/S2 against the
+    frames); returns (the launches each kernel made, after checking them;
+    the max absolute difference per kernel, all 0)."""
+    import torch
+
+    from metalhuffman_tpu_torch.ops import decode_cuda
+    from metalhuffman_tpu_torch.probes import ablate_decode, int16_rate, strips
+
+    cases = probe_cases(device)
+    rates = {v: int16_rate.make_input(RATE_SMALL, v, device)
+             for v in int16_rate.VARIANTS}
+    worst = dict.fromkeys(("decode_strips", "ablate_decode", "int16_rate"), 0)
+
+    reset_launches()
+    for name, p, lut, frames in cases:
+        args = (p.words, p.offsets, p.symbols, p.bounds, p.adj)
+        geo = dict(num_frames=p.num_frames, bh=p.bh, bw=p.bw)
+        plain = decode_cuda.decode_images_plain(*args, **geo, delta=True)
+        outs = {"S1 strips": strips.decode_strips(*args, **geo)}
+        for v in ablate_decode.VARIANTS:
+            outs[f"S2 {v}"] = ablate_decode.ablate_decode(
+                *args, **geo, variant=v, lut=lut)
+        for label, out in outs.items():
+            want = (ablate_decode.xor_fold(plain, **geo)
+                    if label == "S2 xorfold" else plain)
+            # bytes: the xorfold words compared byte by byte
+            err = int((out.view(torch.uint8).int()
+                       - want.view(torch.uint8).int()).abs().max())
+            kernel = "decode_strips" if label == "S1 strips" else "ablate_decode"
+            worst[kernel] = max(worst[kernel], err)
+            check(err == 0, f"phase E {name} {label}: kernel differs from "
+                  f"plain by {err}")
+            if frames is not None and label != "S2 xorfold":
+                got = out[:, :p.height, :p.width].cpu().numpy()
+                check(np.array_equal(got, frames),
+                      f"phase E {name} {label}: differs from the frames")
+        print(f"phase E ok: {name}: S1 and S2 {', '.join(ablate_decode.VARIANTS)}"
+              f" == plain{' == frames' if frames is not None else ''} "
+              f"({p.offsets.numel()} blocks, bw {p.bw}, {lut.num_t2} T2 "
+              f"tables, {len(ablate_decode.pruned_terms(p.bounds, p.adj)[0])} "
+              "compare terms)")
+    for v, x in rates.items():
+        out = int16_rate.int16_rate(x, v)
+        err = int((out.long() - int16_rate.int16_rate_plain(x, v).long())
+                  .abs().max())
+        worst["int16_rate"] = max(worst["int16_rate"], err)
+        check(err == 0, f"phase E S3 {v}: kernel differs from plain by {err}")
+    print(f"phase E ok: S3 {', '.join(int16_rate.VARIANTS)} on {RATE_SMALL} "
+          "elements == plain")
+    counts = read_launches()
+    expected = expect(decode_strips=len(cases),
+                      ablate_decode=len(cases) * len(ablate_decode.VARIANTS),
+                      int16_rate=len(rates))
+    check(counts == expected,
+          f"phase E: kernel launches {counts}, expected {expected}")
+    print(f"phase E launches: {counts}")
+    torch.cuda.synchronize()
+    return counts, worst
 
 
 def timed(label: str, fn, inputs, card: str, nbytes: int,
@@ -913,6 +1022,129 @@ def image_timings(device, card: str) -> None:
               f"{walls[-1]:.4f}), on {card}")
 
 
+def probe_batches(frames: np.ndarray, device):
+    """VARIANTS staged batches of the 30x2048x1536 ``frames`` in frame-order
+    rotations (one table, distinct bitstreams) -> (preps, the table's lut)."""
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.probes import ablate_decode
+
+    preps, widths = [], None
+    for v in range(VARIANTS):
+        stream = fs.encode_frames_shared(np.roll(frames, v, axis=0))
+        if widths is None:
+            widths = stream.widths
+        check(np.array_equal(stream.widths, widths),
+              "timed probe inputs: the table differs between rotations")
+        preps.append(fs.prepare_shared(stream, *FULL, device=device))
+    return preps, ablate_decode.lut_tables(widths, device)
+
+
+def probe_timings(device, card: str) -> dict:
+    """Times of B1, S1 and every S2 variant in interleaved rounds on 4 staged
+    30x2048x1536 photo batches and 4 synthetic ones, after holding each
+    equal to the plain version on every input; of every S3 variant and the
+    int32 plain chain on 2^22 elements; the S3 kernels' SASS opcodes.
+    Returns the probes' JSON entries (launches left 0)."""
+    import torch
+
+    from metalhuffman_tpu_torch.ops import decode_cuda
+    from metalhuffman_tpu_torch.probes import (ablate_decode, int16_rate,
+                                               measure_interleaved, median,
+                                               strips)
+
+    entries = {}
+    t, h, w = FULL
+    for content, frames in (("photo", photo_frames(h, w, t)),
+                            ("synthetic", synthetic(t, h, w))):
+        preps, lut = probe_batches(frames, device)
+
+        def args(i):
+            p = preps[i]
+            return ((p.words, p.offsets, p.symbols, p.bounds, p.adj),
+                    dict(num_frames=t, bh=p.bh, bw=p.bw))
+
+        def b1_plain(p):
+            return decode_cuda.decode_images_plain(
+                p.words, p.offsets, p.symbols, p.bounds, p.adj,
+                num_frames=t, bh=p.bh, bw=p.bw, delta=True)
+
+        def variant(v):
+            def run(i):
+                a, g = args(i)
+                return ablate_decode.ablate_decode(*a, **g, variant=v, lut=lut)
+            return run
+
+        fns = {"B1": lambda i: decode_cuda.decode_images(
+                   *args(i)[0], **args(i)[1], delta=True),
+               "S1 strips": lambda i: strips.decode_strips(*args(i)[0],
+                                                           **args(i)[1]),
+               **{f"S2 {v}": variant(v) for v in ablate_decode.VARIANTS}}
+        for i, p in enumerate(preps):
+            plain = b1_plain(p)
+            for label, fn in fns.items():
+                want = (ablate_decode.xor_fold(plain, **args(i)[1])
+                        if label == "S2 xorfold" else plain)
+                check(torch.equal(fn(i), want), f"timed {content} input {i}: "
+                      f"{label} differs from the plain version")
+        print(f"full-size check ok: B1, S1, S2 {', '.join(ablate_decode.VARIANTS)}"
+              f" == plain on {VARIANTS} staged {content} 30x2048x1536 inputs "
+              f"({lut.num_t2} T2 tables, "
+              f"{len(ablate_decode.pruned_terms(preps[0].bounds, preps[0].adj)[0])}"
+              " compare terms)")
+        times = measure_interleaved(fns, len(preps))
+        bms, by = bound(f"B1 {content} 30x2048x1536", preps[0], frames.size)
+        for label, ms in times.items():
+            med = median(ms)
+            print(f"time {label} {content} 30x2048x1536: median {med:.4f} ms "
+                  f"of {len(ms)} interleaved rounds (min {ms[0]:.4f}, max "
+                  f"{ms[-1]:.4f}), {frames.size / med / 1e6:.3f} GB/s decoded, "
+                  f"{100 * bms / med:.1f} % of the bound, on {card}")
+        if content == "photo":
+            plain_ms = timed("S1/S2 plain (B1's) photo 30x2048x1536",
+                             b1_plain, preps, card, frames.size)
+            common = dict(max_abs_err=0, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=by)
+            entries["decode_strips"] = dict(ms=median(times["S1 strips"]),
+                                            **common)
+            entries["ablate_decode"] = dict(
+                ms=median(times["S2 base"]), **common,
+                variants={v: median(times[f"S2 {v}"])
+                          for v in ablate_decode.VARIANTS})
+        del preps, lut
+
+    n = int16_rate.ELEMENTS
+    xs = {v: int16_rate.make_input(n, v, device) for v in int16_rate.VARIANTS}
+    for v, x in xs.items():
+        check(torch.equal(int16_rate.int16_rate(x, v),
+                          int16_rate.int16_rate_plain(x, v)),
+              f"timed S3 {v}: kernel differs from plain")
+    print(f"full-size check ok: S3 {', '.join(xs)} == plain on {n} elements")
+    times = {v: median(ms) for v, ms in measure_interleaved(
+        {v: (lambda i, v=v: int16_rate.int16_rate(xs[v], v)) for v in xs},
+        1).items()}
+    bounds = {}
+    for v, ms in times.items():
+        nbytes = 2 * n * xs[v].element_size()  # elements in, results out
+        bounds[v] = roofline(f"S3 {v} {n} elements", nbytes,
+                             int16_rate.ops(n, v))
+        print(f"time S3 {v} {n} elements: median {ms:.4f} ms, "
+              f"{int16_rate.ops(n, v) / ms / 1e9:.3f} T ops/s, "
+              f"{100 * bounds[v][0] / ms:.1f} % of the bound, on {card}")
+    print(f"S3 per-element speedup over i32: i16x2 "
+          f"{times['i32'] / times['i16x2']:.3f}x, i16 "
+          f"{times['i32'] / times['i16']:.3f}x")
+    plain_ms = timed(f"S3 plain i32 {n} elements",
+                     lambda x: int16_rate.int16_rate_plain(x, "i32"),
+                     [xs["i32"]], card, n, "elements")
+    for kernel, counts in int16_rate.sass_opcodes().items():
+        print(f"SASS {kernel}: " + ", ".join(
+            f"{op} {k}" for op, k in counts.most_common()))
+    entries["int16_rate"] = dict(max_abs_err=0, ms=times["i32"],
+                                 plain_ms=plain_ms, bound_ms=bounds["i32"][0],
+                                 bound_by=bounds["i32"][1], variants=times)
+    return entries
+
+
 def ab(baseline: Path, device, card: str) -> None:
     """B1 against ``baseline``, another commit's ``decode_images.cu`` with
     the same C entry point (with or without the end pointer), in one
@@ -993,10 +1225,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
+    card = probes.card()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -1024,11 +1253,16 @@ def main(argv: list[str]) -> int:
     for phase in (phase_b, phase_c, phase_d):
         for name, count in phase(device).items():
             launches[name] += count
+    counts, errs = phase_e(device)
+    for name, count in counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_rows"] = encode_timings(device, card)
     image_timings(device, card)
-    for name, err in (("decode_images", max_err), ("decode_blocks", b2_err),
-                      ("encode_rows", b3_err)):
+    entries.update(probe_timings(device, card))
+    errs.update(decode_images=max_err, decode_blocks=b2_err,
+                encode_rows=b3_err)
+    for name, err in errs.items():
         entries[name]["max_abs_err"] = max(err, entries[name]["max_abs_err"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

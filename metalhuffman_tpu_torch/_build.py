@@ -27,12 +27,18 @@ KERNELS = {
     "decode_images": CSRC / "decode_images.cu",
     "decode_blocks": CSRC / "decode_blocks.cu",
     "encode_rows": CSRC / "encode_rows.cu",
+    "decode_strips": CSRC / "decode_strips.cu",
+    "ablate_decode": CSRC / "ablate_decode.cu",
+    "int16_rate": CSRC / "int16_rate.cu",
 }
 #: the headers each kernel source includes, part of its library's hash
 HEADERS = {
     "decode_images": (CSRC / "decode_common.cuh",),
     "decode_blocks": (CSRC / "decode_common.cuh",),
     "encode_rows": (),
+    "decode_strips": (CSRC / "decode_common.cuh",),
+    "ablate_decode": (CSRC / "decode_common.cuh",),
+    "int16_rate": (),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "metalhuffman_tpu_torch"
 NVCC_FLAGS = (
@@ -53,6 +59,19 @@ _ARGTYPES = {
                       _ptr, _ptr, _ptr],
     # symbols, n_blocks, table, wmax, rows, stream
     "encode_rows": [_ptr, _i64, _ptr, _int, _ptr, _ptr],
+    # words, n_words, offsets, n_blocks, bh, bw, bounds, adj, symbols, out,
+    # stream
+    "decode_strips": [_ptr, _i64, _ptr, _i64, _i64, _i64, *_TABLE, _ptr, _ptr,
+                      _ptr],
+    # words, n_words, offsets, n_blocks, bh, bw, bounds, adj, symbols,
+    # variant, n_terms, term_bounds, term_incs, term_base, t1, t2, n_t2, out,
+    # stream
+    "ablate_decode": [_ptr, _i64, _ptr, _i64, _i64, _i64, *_TABLE, _ptr, _int,
+                      _int, *_TABLE, ctypes.c_int32, _ptr, _ptr, _int, _ptr,
+                      _ptr],
+    # x, n, variant, step, thresh, out, stream
+    "int16_rate": [_ptr, _i64, _int, ctypes.c_int32, ctypes.c_int32, _ptr,
+                   _ptr],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

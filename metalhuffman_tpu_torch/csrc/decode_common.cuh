@@ -40,27 +40,34 @@ __device__ __forceinline__ void stage_table(const IntervalTable& tab,
   }
 }
 
-// Decode the 4 symbols that start at absolute bit `pos` of the big-endian
-// word stream. Returns the bits they took; `packed` gets them little-endian
-// (symbol k in byte k). With DELTA each output is the running sum `prev` of
-// the 1-D delta, carried across calls.
+// The 64-bit window of the big-endian word stream left-justified at absolute
+// bit `pos`: enough for 4 symbols of up to 16 bits.
 //
-// The refill reads words pos>>5 .. (pos>>5)+2. The caller pads the stream so
-// a well-formed block never needs more (each of a group's symbols takes at
+// It reads words pos>>5 .. (pos>>5)+2. The caller pads the stream so a
+// well-formed block never needs more (each of a group's symbols takes at
 // least one bit, so the last group of any block, of any size, starts at or
 // before total_bits - 4); the clamp to last_word = n_words - 3 keeps a
 // malformed offset or a desynchronised corrupt stream inside the buffer.
-template <bool DELTA>
-__device__ __forceinline__ uint32_t decode_group(
-    const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
-    const IntervalTable& tab, const uint8_t* s_sym, const int32_t* s_adj,
-    uint32_t& prev, uint32_t& packed) {
+__device__ __forceinline__ uint64_t refill(const uint32_t* __restrict__ words,
+                                           uint64_t last_word, uint64_t pos) {
   uint64_t wi = pos >> 5;
   if (wi > last_word) wi = last_word;
   const uint32_t s = (uint32_t)(pos & 31);
   const uint64_t w01 = ((uint64_t)words[wi] << 32) | words[wi + 1];
   // (uint64_t)w2 >> (32 - s) is defined for s == 0 in 64 bits
-  const uint64_t win = (w01 << s) | ((uint64_t)words[wi + 2] >> (32 - s));
+  return (w01 << s) | ((uint64_t)words[wi + 2] >> (32 - s));
+}
+
+// Decode the 4 symbols that start at absolute bit `pos` of the big-endian
+// word stream. Returns the bits they took; `packed` gets them little-endian
+// (symbol k in byte k). With DELTA each output is the running sum `prev` of
+// the 1-D delta, carried across calls.
+template <bool DELTA>
+__device__ __forceinline__ uint32_t decode_group(
+    const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
+    const IntervalTable& tab, const uint8_t* s_sym, const int32_t* s_adj,
+    uint32_t& prev, uint32_t& packed) {
+  const uint64_t win = refill(words, last_word, pos);
   uint32_t t = 0;  // bits consumed in this group, <= 48 before symbol 3
   uint32_t out = 0;
 #pragma unroll
@@ -80,6 +87,18 @@ __device__ __forceinline__ uint32_t decode_group(
   }
   packed = out;
   return t;
+}
+
+// First byte of block b's top row in a (T, bh*8, bw*8) uint8 image batch,
+// block b of the raster block order with frames concatenated.
+__device__ __forceinline__ uint8_t* block_origin(uint8_t* out, int64_t b,
+                                                 int64_t bh, int64_t bw) {
+  const int64_t per_frame = bh * bw;
+  const int64_t f = b / per_frame;
+  const int64_t r = b - f * per_frame;
+  const int64_t by = r / bw;
+  const int64_t bx = r - by * bw;
+  return out + ((f * bh + by) * 8) * (bw * 8) + bx * 8;
 }
 
 // bytewise mod-256 add of 8 packed bytes, no carry between bytes

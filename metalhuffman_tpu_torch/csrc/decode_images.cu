@@ -22,12 +22,17 @@
 // shared memory once per CUDA block. The refill and the symbol decode live in
 // decode_common.cuh, shared with the packed-block kernel (decode_blocks.cu).
 //
-// What bounds it on the H100: the serial decode chain of each block (64
-// dependent width/index/lookup steps, 15 compares each) and the scattered
-// 8-byte row stores (one thread writes 8 rows that lie a frame row apart), not
-// memory bandwidth: a 94 MB batch reads ~55 MB of code words and writes 94 MB.
-// Later work: coalesced output staging through shared memory, several symbols
-// per refill, a lookup table in place of the compare chain.
+// What bounds it on the H100, as the probes of metalhuffman_tpu_torch/probes
+// measured it on the 30x2048x1536 photo batch (PERF.md): the instructions of
+// the 15-compare interval chain, not memory bandwidth (a 94 MB batch reads
+// ~55 MB of code words and writes 94 MB, 0.045 ms at 3.35 TB/s, against
+// ~0.35 ms). A two-level lookup table in place of the chain decodes the same
+// bytes 2.9x faster, and compares pruned to the table's code lengths with a
+// fused width/adj sum 1.3x faster; dropping 7 of every 8 row stores, staging
+// the rows through shared memory for 16-byte stores, or two chains per thread
+// move it by under 5 %: a warp's 8-byte row stores already cover 256
+// contiguous bytes, and the chains' latency is hidden. Later work: the lookup
+// table (queue B), then several symbols per refill.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,13 +61,8 @@ decode_images_kernel(const uint32_t* __restrict__ words, uint64_t last_word,
 
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= n_blocks) return;
-  const int64_t per_frame = bh * bw;
-  const int64_t f = b / per_frame;
-  const int64_t r = b - f * per_frame;
-  const int64_t by = r / bw;
-  const int64_t bx = r - by * bw;
   const int64_t row_bytes = bw * 8;
-  uint8_t* dst = out + ((f * bh + by) * 8) * row_bytes + bx * 8;
+  uint8_t* dst = mht::block_origin(out, b, bh, bw);
 
   const uint32_t start = offsets[b];
   uint64_t pos = start;   // absolute bit position; may pass 2^32

@@ -107,6 +107,16 @@ def test_build_targets_sm90a_under_build_dir():
         assert f"mht_{name}(" in src.read_text()
 
 
+def test_chip_smoke_reports_and_counts_every_kernel():
+    # every built kernel has an entry in the kernels line and a launch count
+    assert chip_smoke.KERNELS.keys() == _build.KERNELS.keys()
+    chip_smoke.reset_launches()
+    assert chip_smoke.read_launches() == chip_smoke.expect()
+    assert all(e["source"] == f"metalhuffman_tpu_torch/csrc/{n}.cu"
+               and (ROOT / e["replaces"].split(":")[0]).is_file()
+               for n, e in chip_smoke.KERNELS.items())
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
