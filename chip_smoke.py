@@ -8,7 +8,7 @@ the CUDA toolkit (nvcc) and g++:
 
 Phases (any failure exits nonzero and prints no result):
 
-1. Build the six CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
+1. Build the seven CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source, in parallel) and the host C++
    codec (g++), and print the build time and ptxas's register, shared-memory
    and spill lines.
@@ -23,11 +23,13 @@ Phases (any failure exits nonzero and prints no result):
    the one-symbol, the 16-bit-code and a malformed all-16-bit table (T2 read
    through L1), and under an incomplete two-symbol code whose 52 KB table
    takes shared memory past 48 KB; every path of both kernels (T2 in shared
-   memory or through L1) must have launched. B3 (``encode_rows``): every row
-   word and count word, on 2048x1536 and 1920x1080 delta payloads and on
-   three tables of the encoder tests (16-bit codes, 1-bit codes, one
-   symbol), from aligned and unaligned symbol buffers; the count words equal
-   the blocks' bit counts.
+   memory or through L1) must have launched. On 2048x1536 and 1920x1080
+   delta payloads and on three tables of the encoder tests (16-bit codes,
+   1-bit codes, one symbol), from aligned and unaligned symbol buffers:
+   ``encode_stream`` (B3 redesigned), stream bytes, offsets and total,
+   against its plain version and the host encoder, alone and with 1- and
+   17-symbol tails; B3's row form (``encode_rows``), every row word and
+   count word, the count words equal to the blocks' bit counts.
 3. Phase B, the video main path at full size: host encode of a 30-frame
    2048x1536 batch, ``prepare_shared`` on the card, one launch through
    ``decode_shared_step(raw=True)``, ``frames_from_raw``, for synthetic and
@@ -41,10 +43,11 @@ Phases (any failure exits nonzero and prints no result):
    8x8 and 16x16, clean and with a flipped bit, its mask equal to the plain
    version's.
 5. Phase D, the device encode at full size: ``encode_symbols_hybrid`` on
-   the card for the 1-D delta payloads of the 30x2048x1536 synthetic and
-   photo batches, each also with a 17-symbol tail, byte-equal to the host
-   encoder; each stream written as MHTV and decoded back by ``decode_video``
-   on the card (CRC-checked, equal to the frames).
+   the card (through ``encode_stream``) for the 1-D delta payloads of the
+   30x2048x1536 synthetic and photo batches, each also with a 17-symbol
+   tail, byte-equal to the host encoder; each stream written as MHTV and
+   decoded back by ``decode_video`` on the card (CRC-checked, equal to the
+   frames).
 6. Phase E, the probes of B1 (``metalhuffman_tpu_torch.probes``), each
    against its plain version, tolerance 0: S1 (``decode_strips``) and every
    S2 variant (``ablate_decode``) on 2x2048x1536 and 1x1920x1080 photo and
@@ -58,9 +61,11 @@ Phases (any failure exits nonzero and prints no result):
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
-   B2 queued back to back; B3 and its plain version on that batch's payload,
-   and on the host's clock the host encoder, the row merge, the rows'
-   device-to-host copy and the whole hybrid encode; one ``decode_image`` of
+   B2 queued back to back; on that batch's payload ``encode_stream`` (each
+   pass alone, the scan, the whole wrapper) and B3's row form, each against
+   its plain version, and on the host's clock each step of the hybrid
+   encode, the whole call, the host encoder and the row-form path it
+   replaced (host bit counts, B3, rows back, row merge); one ``decode_image`` of
    the photo at 8x8 and 16x16; B1, S1 and every S2 variant
    in interleaved rounds on 4 staged 30x2048x1536 photo batches and 4
    synthetic ones (one table each), each held equal to its plain version
@@ -112,6 +117,11 @@ KERNELS = {
         "route": "cuda",
         "source": "metalhuffman_tpu_torch/csrc/decode_blocks.cu",
         "replaces": "metalhuffman_tpu/ops/decode_pallas.py:462",
+    },
+    "encode_stream": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/encode_stream.cu",
+        "replaces": "metalhuffman_tpu/ops/encode_pallas.py:138",
     },
     "encode_rows": {
         "route": "cuda",
@@ -475,25 +485,83 @@ def delta2d_blocks(blocks64: np.ndarray) -> np.ndarray:
     return (np.cumsum(sq, 1) & 0xFF).astype(np.uint8).reshape(-1, 64)
 
 
-def phase_a_encode(device) -> int:
-    """B3 against its plain version, every row word and count word, from
-    aligned and unaligned symbol buffers; returns the max absolute word
-    difference (must be 0)."""
+def unaligned(x):
+    """The same bytes one byte into a buffer: the kernels' byte-load path."""
     import torch
 
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=x.device)
+    buf[1:] = x.view(-1)
+    return buf[1:].view(x.shape)
+
+
+def stream_error(got, want) -> int:
+    """Max absolute difference of two (stream bytes, offsets, total) results
+    of ``encode_stream`` (a length mismatch counts as the longer length)."""
+    (code, offs, total), (pcode, poffs, ptotal) = got, want
+    if code.numel() != pcode.numel() or offs.numel() != poffs.numel():
+        return max(code.numel(), pcode.numel())
+    err = abs(total - ptotal)
+    for x, y in ((code, pcode), (offs, poffs)):
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def phase_a_stream(device, cases) -> int:
+    """``encode_stream`` against its plain version and the host encoder on
+    each payload alone and with 1- and 17-symbol tails, from aligned and
+    unaligned symbol buffers; returns the max absolute difference (must be
+    0)."""
+    import torch
+
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    worst = 0
+    for name, data in cases:
+        body = data[: data.size // 64 * 64]
+        for tail in (0, 1, 17):
+            d = np.concatenate([body, body[:tail]]) if tail else data
+            widths, codes = encode_cuda.canonical_table(d)
+            tab = torch.from_numpy(encode_cuda.code_table(widths, codes)).to(
+                device)
+            sym = torch.from_numpy(d).to(device)
+            host = native.encode_symbols(d)
+            plain = encode_cuda.encode_stream_plain(sym, tab)
+            for src in (sym, unaligned(sym)):
+                got = encode_cuda.encode_stream(src, tab)
+                err = stream_error(got, plain)
+                worst = max(worst, err)
+                check(err == 0, f"phase A encode_stream {name} + {tail}: "
+                      f"kernel differs from plain by {err}")
+                check(np.array_equal(got[0].cpu().numpy(), host.code_bytes)
+                      and np.array_equal(got[1].cpu().numpy().view(np.uint32),
+                                         host.block_offsets),
+                      f"phase A encode_stream {name} + {tail}: the stream "
+                      "differs from the host encoder's")
+        print(f"phase A ok: encode_stream {name}: {data.size} symbols "
+              f"({data.size % 64} in the tail), and the whole blocks with 1- "
+              "and 17-symbol tails: kernel == plain == host encoder from "
+              "aligned and unaligned symbols")
+    return worst
+
+
+def phase_a_encode(device) -> tuple[int, int]:
+    """``encode_stream`` (:func:`phase_a_stream`), then B3's row form
+    against its plain version, every row word and count word, from aligned
+    and unaligned symbol buffers; returns the max absolute difference of
+    each (must be 0)."""
     from metalhuffman_tpu_torch.ops import encode_cuda
 
     cases = [("delta 2048x1536", delta_payload(synthetic(1, *FULL[1:]))),
              ("delta 1920x1080", delta_payload(synthetic(1, *HD[1:]))),
              *encoder_sets()]
+    stream_worst = phase_a_stream(device, cases)
     worst = 0
     for name, data in cases:
         sym, tab, bits, wmax = stage_encode(data, device)
         plain = encode_cuda.encode_rows_plain(sym, tab, wmax=wmax).long()
-        # the kernel's byte-load path: the same blocks one byte into a buffer
-        buf = torch.empty(sym.numel() + 1, dtype=torch.uint8, device=device)
-        buf[1:] = sym.view(-1)
-        for src in (sym, buf[1:].view(-1, 64)):
+        for src in (sym, unaligned(sym)):
             rows = encode_cuda.encode_rows(src, tab, wmax=wmax)
             err = int((rows.long() - plain).abs().max())
             worst = max(worst, err)
@@ -504,7 +572,7 @@ def phase_a_encode(device) -> int:
         print(f"phase A ok: B3 {name}: {sym.shape[0]} blocks, wmax {wmax}: "
               "kernel == plain from aligned and unaligned symbols, count "
               "words == bit counts")
-    return worst
+    return stream_worst, worst
 
 
 def phase_b(device) -> dict:
@@ -723,7 +791,7 @@ def phase_d(device) -> dict:
               f"decode_video of it CRC-checked, equal to the frames; "
               f"encode call {dt:.3f} s")
     counts = read_launches()
-    expected = expect(decode_images=len(cases), encode_rows=2 * len(cases))
+    expected = expect(decode_images=len(cases), encode_stream=2 * len(cases))
     check(counts == expected,
           f"phase D: kernel launches {counts}, expected {expected}")
     print(f"phase D launches: {counts}")
@@ -1045,11 +1113,78 @@ def timings(device, card: str) -> dict:
     return entries
 
 
-def encode_timings(device, card: str) -> dict:
-    """Times of B3 and its plain version on the 30x2048x1536 synthetic
-    payload, after holding the kernel word-equal to its plain version on
-    every staged input, and of the hybrid encode's host stages on the
-    host's clock; returns B3's JSON entry (launches left 0)."""
+#: the steps of one ``encode_symbols_hybrid`` call, as :func:`hybrid_steps`
+#: takes them
+HYBRID_STEPS = (
+    "symbols host-to-device copy",
+    "histogram (torch.bincount) and its counts back",
+    "canonical table (host) and the table up",
+    "count pass",
+    "scan (torch.cumsum int64) and the total back",
+    "pack pass (zeroed stream, offsets, launch)",
+    "stream device-to-host copy",
+    "offsets device-to-host copy",
+)
+
+
+def hybrid_steps(data: np.ndarray, device) -> list:
+    """The steps of ``encode_symbols_hybrid(data)``, each ended by a device
+    synchronize, on the host's clock -> ms per entry of HYBRID_STEPS."""
+    import torch
+
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    sync = torch.cuda.synchronize
+    marks = [time.perf_counter()]
+    sym = torch.from_numpy(data).to(device)
+    sync()
+    marks.append(time.perf_counter())
+    freqs = torch.bincount(sym, minlength=256).cpu().numpy()
+    marks.append(time.perf_counter())
+    widths = native.code_lengths(freqs)
+    tab = torch.from_numpy(encode_cuda.code_table(
+        widths, native.canonical_codes(widths))).to(device)
+    sync()
+    marks.append(time.perf_counter())
+    bits = encode_cuda._count_pass(sym, tab)
+    sync()
+    marks.append(time.perf_counter())
+    incl = torch.cumsum(bits, 0, dtype=torch.int64)
+    total = int(incl[-1])
+    marks.append(time.perf_counter())
+    code, offsets = encode_cuda._pack_pass(sym, tab, incl, (total + 7) // 8 + 2)
+    sync()
+    marks.append(time.perf_counter())
+    code.cpu()
+    marks.append(time.perf_counter())
+    offsets.cpu()
+    marks.append(time.perf_counter())
+    return [1e3 * (t1 - t0) for t0, t1 in zip(marks, marks[1:])]
+
+
+def rows_hybrid(data: np.ndarray, device):
+    """The device encode as it ran before ``encode_stream`` (the row form),
+    for a payload of whole blocks: host table and bit counts, B3's rows on
+    the card, the rows back, the host row merge -> (code bytes, offsets)."""
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.ops import encode_cuda
+
+    sym, tab, bits, wmax = stage_encode(data, device)
+    rows = encode_cuda.encode_rows(sym, tab, wmax=wmax)
+    rows = rows[:, :wmax].contiguous().cpu().numpy().view(np.uint32)
+    code, offsets, _ = native.merge_rows(rows, bits)
+    return code, offsets
+
+
+def encode_timings(device, card: str) -> tuple[dict, dict]:
+    """On the 30x2048x1536 synthetic payload: ``encode_stream`` (the whole
+    wrapper, each pass and the scan) and B3's row form, each against its
+    plain version with CUDA events, after holding each equal to its plain
+    version on every staged input; on the host's clock the host encoder, the
+    whole ``encode_symbols_hybrid`` call and each of its steps, and the
+    row-form path it replaced. Returns the two kernels' JSON entries
+    (launches left 0)."""
     import torch
 
     from metalhuffman_tpu_torch import native
@@ -1057,9 +1192,61 @@ def encode_timings(device, card: str) -> dict:
 
     payload = delta_payload(synthetic(*FULL))
     n = payload.size
+    check(n % 64 == 0, "timed payload: not whole blocks")
     # distinct inputs in distinct buffers: the payload rolled by whole
-    # blocks (one table, one wmax, the blocks in another order)
+    # blocks (one table, one wmax, one stream size, the blocks in another
+    # order)
     payloads = [np.roll(payload, 64 * 4096 * v) for v in range(VARIANTS)]
+
+    widths, codes = encode_cuda.canonical_table(payload)
+    tab = torch.from_numpy(encode_cuda.code_table(widths, codes)).to(device)
+    syms = [torch.from_numpy(p).to(device) for p in payloads]
+    hosts = [native.encode_symbols(p) for p in payloads]
+    nbytes = hosts[0].code_bytes.size
+    check(all(h.code_bytes.size == nbytes and np.array_equal(h.widths, widths)
+              for h in hosts), "timed encode inputs: the table or size differs")
+    worst = 0
+    for v, (sym, host) in enumerate(zip(syms, hosts)):
+        got = encode_cuda.encode_stream(sym, tab)
+        err = stream_error(got, encode_cuda.encode_stream_plain(sym, tab))
+        worst = max(worst, err)
+        check(err == 0, f"timed encode_stream input {v}: kernel differs from "
+              f"plain by {err}")
+        check(np.array_equal(got[0].cpu().numpy(), host.code_bytes)
+              and np.array_equal(got[1].cpu().numpy().view(np.uint32),
+                                 host.block_offsets),
+              f"timed encode_stream input {v}: differs from the host encoder")
+    print(f"full-size check ok: encode_stream == plain == host encoder on "
+          f"{VARIANTS} staged 30x2048x1536 payloads ({n // 64} blocks, "
+          f"{nbytes} stream bytes)")
+    ms = timed("encode_stream (count pass, scan, total back, pack pass) "
+               "30x2048x1536", lambda s: encode_cuda.encode_stream(s, tab),
+               syms, card, n, "encoded")
+    count_ms = timed("encode_stream count pass 30x2048x1536",
+                     lambda s: encode_cuda._count_pass(s, tab), syms, card, n,
+                     "encoded")
+    bits = [encode_cuda._count_pass(s, tab) for s in syms]
+    timed("encode_stream scan (torch.cumsum int64) 30x2048x1536",
+          lambda b: torch.cumsum(b, 0, dtype=torch.int64), bits, card, n,
+          "encoded")
+    incls = [torch.cumsum(b, 0, dtype=torch.int64) for b in bits]
+    pack_ms = timed("encode_stream pack pass (zeroed stream and launch) "
+                    "30x2048x1536",
+                    lambda a: encode_cuda._pack_pass(a[0], tab, a[1], nbytes),
+                    list(zip(syms, incls)), card, n, "encoded")
+    print(f"encode_stream count + pack passes: {count_ms + pack_ms:.4f} ms")
+    plain_ms = timed("encode_stream plain 30x2048x1536",
+                     lambda s: encode_cuda.encode_stream_plain(s, tab), syms,
+                     card, n, "encoded")
+    # symbols in, the stream and the complete blocks' offsets out, the table
+    bms, by = roofline("encode_stream 30x2048x1536",
+                       n + nbytes + 4 * (n // 64) + 1024,
+                       n * ENCODE_OPS_PER_SYMBOL)
+    stream_entry = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by,
+                        passes={"count": count_ms, "pack": pack_ms})
+    del syms, bits, incls
+
     staged = [stage_encode(p, device) for p in payloads]
     wmax = staged[0][3]
     check(all(st[3] == wmax for st in staged), "timed inputs: wmax differs")
@@ -1082,44 +1269,59 @@ def encode_timings(device, card: str) -> dict:
     nb = staged[0][0].shape[0]
     print(f"full-size check ok: B3 == plain on {VARIANTS} staged "
           f"30x2048x1536 payloads ({nb} blocks, wmax {wmax})")
-    ms = timed("B3 kernel encode_rows 30x2048x1536", b3, staged, card, n,
-               "encoded")
-    plain_ms = timed("B3 plain 30x2048x1536", b3_plain, staged, card, n,
-                     "encoded")
+    b3_ms = timed("B3 kernel encode_rows 30x2048x1536", b3, staged, card, n,
+                  "encoded")
+    b3_plain_ms = timed("B3 plain 30x2048x1536", b3_plain, staged, card, n,
+                        "encoded")
     # symbols in, the 1 KB table in, rows out
-    bms, by = roofline("B3 30x2048x1536", n + 1024 + 4 * nb * (wmax + 1),
-                       n * ENCODE_OPS_PER_SYMBOL)
+    b3_bms, b3_by = roofline("B3 30x2048x1536", n + 1024 + 4 * nb * (wmax + 1),
+                             n * ENCODE_OPS_PER_SYMBOL)
+    del staged
 
-    # the host encoder; the hybrid's stages, each alone; the whole call
-    host_timed("host MT encode (native.encode_symbols) 30x2048x1536",
-               native.encode_symbols, payloads, card, n)
-    host_timed("hybrid step: histogram and canonical table 30x2048x1536",
-               encode_cuda.canonical_table, payloads, card, n)
-    widths = encode_cuda.canonical_table(payload)[0]
-    host_timed("hybrid step: per-block bit counts 30x2048x1536",
+    # the host encoder, the whole call and its steps; the row-form path
+    host_ms = host_timed("host MT encode (native.encode_symbols) 30x2048x1536",
+                         native.encode_symbols, payloads, card, n)
+    whole_ms = host_timed(
+        "whole encode_symbols_hybrid (encode_stream) 30x2048x1536",
+        lambda p: encode_cuda.encode_symbols_hybrid(p, device=device),
+        payloads, card, n)
+    hybrid_steps(payloads[0], device)  # warm up
+    steps = np.median([hybrid_steps(payloads[i % VARIANTS], device)
+                       for i in range(HOST_ITERS)], axis=0)
+    for name, step_ms in zip(HYBRID_STEPS, steps):
+        print(f"time hybrid step: {name} 30x2048x1536: median {step_ms:.4f} "
+              f"ms over {HOST_ITERS} calls, host clock, on {card}")
+    print(f"  (the steps sum to {steps.sum():.4f} ms; the stream back moves "
+          f"{nbytes} bytes: {nbytes / steps[6] / 1e6:.3f} GB/s)")
+    # the two large copies from and into page-locked host buffers, which
+    # the path does not use (pageable numpy arrays in, numpy arrays out)
+    pinned_in = torch.from_numpy(payload).pin_memory()
+    host_timed("symbols host-to-device copy from a page-locked buffer (not "
+               "on the path) 30x2048x1536",
+               lambda x: x.to(device, non_blocking=True), [pinned_in], card, n)
+    code_dev = encode_cuda.encode_stream(pinned_in.to(device), tab)[0]
+    pinned_out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host_timed("stream device-to-host copy into a page-locked buffer (not on "
+               "the path) 30x2048x1536",
+               lambda c: pinned_out.copy_(c, non_blocking=True), [code_dev],
+               card, nbytes)
+    del pinned_in, pinned_out, code_dev
+    code, offsets = rows_hybrid(payload, device)
+    check(np.array_equal(code, hosts[0].code_bytes)
+          and np.array_equal(offsets, hosts[0].block_offsets),
+          "the row-form encode differs from the host encoder")
+    rows_ms = host_timed(
+        "whole row-form encode (host table and bit counts, B3, rows back, "
+        "row merge; the path before encode_stream) 30x2048x1536",
+        lambda p: rows_hybrid(p, device), payloads, card, n)
+    host_timed("row-form step: per-block bit counts (host) 30x2048x1536",
                lambda p: encode_cuda.block_bits(p.reshape(-1, 64), widths),
                payloads, card, n)
-    host_timed("hybrid step: symbols host-to-device copy 30x2048x1536",
-               lambda p: torch.from_numpy(p.reshape(-1, 64)).to(device),
-               payloads, card, n)
-    rows_dev = [b3(st) for st in staged]
-
-    def fetch(rows):  # as encode_symbols_hybrid fetches them
-        return rows[:, :wmax].contiguous().cpu()
-
-    fetch_ms = host_timed("B3 rows device-to-host copy 30x2048x1536", fetch,
-                          rows_dev, card, n)
-    print(f"  (the copy moves {4 * nb * wmax} bytes: "
-          f"{4 * nb * wmax / fetch_ms / 1e6:.3f} GB/s)")
-    merge_in = [(fetch(r).numpy().view(np.uint32), st[2])
-                for r, st in zip(rows_dev, staged)]
-    host_timed("row merge (native.merge_rows) 30x2048x1536",
-               lambda x: native.merge_rows(*x), merge_in, card, n)
-    host_timed("whole encode_symbols_hybrid 30x2048x1536",
-               lambda p: encode_cuda.encode_symbols_hybrid(p, device=device),
-               payloads, card, n)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by)
+    print(f"hybrid encode: {whole_ms / host_ms:.3f}x the host encoder's time, "
+          f"{rows_ms / whole_ms:.3f}x faster than the row form, on {card}")
+    return stream_entry, dict(max_abs_err=worst, ms=b3_ms,
+                              plain_ms=b3_plain_ms, bound_ms=b3_bms,
+                              bound_by=b3_by)
 
 
 def image_timings(device, card: str) -> None:
@@ -1418,7 +1620,7 @@ def main(argv: list[str]) -> int:
     check(all(paths.values()), f"phase A: a path of B1 or B2 was never "
           f"launched: {paths}")
     print(f"phase A launches by path: {paths}")
-    b3_err = phase_a_encode(device)
+    stream_err, b3_err = phase_a_encode(device)
     launches = dict.fromkeys(KERNELS, 0)
     for phase in (phase_b, phase_c, phase_d):
         for name, count in phase(device).items():
@@ -1427,11 +1629,12 @@ def main(argv: list[str]) -> int:
     for name, count in counts.items():
         launches[name] += count
     entries = timings(device, card)
-    entries["encode_rows"] = encode_timings(device, card)
+    entries["encode_stream"], entries["encode_rows"] = encode_timings(
+        device, card)
     image_timings(device, card)
     entries.update(probe_timings(device, card))
     errs.update(decode_images=max_err, decode_blocks=b2_err,
-                encode_rows=b3_err)
+                encode_stream=stream_err, encode_rows=b3_err)
     for name, err in errs.items():
         entries[name]["max_abs_err"] = max(err, entries[name]["max_abs_err"])
     print(f"total {time.perf_counter() - t_start:.1f} s")

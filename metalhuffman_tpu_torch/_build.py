@@ -26,6 +26,7 @@ CSRC = Path(__file__).parent / "csrc"
 KERNELS = {
     "decode_images": CSRC / "decode_images.cu",
     "decode_blocks": CSRC / "decode_blocks.cu",
+    "encode_stream": CSRC / "encode_stream.cu",
     "encode_rows": CSRC / "encode_rows.cu",
     "decode_strips": CSRC / "decode_strips.cu",
     "ablate_decode": CSRC / "ablate_decode.cu",
@@ -35,6 +36,7 @@ KERNELS = {
 HEADERS = {
     "decode_images": (CSRC / "decode_common.cuh",),
     "decode_blocks": (CSRC / "decode_common.cuh",),
+    "encode_stream": (),
     "encode_rows": (),
     "decode_strips": (CSRC / "decode_common.cuh",),
     "ablate_decode": (CSRC / "decode_common.cuh",),
@@ -58,6 +60,9 @@ _ARGTYPES = {
     # t2_smem, mode, out, end (NULL: no end bits), stream
     "decode_blocks": [_ptr, _i64, _ptr, _i64, _int, *_LUT, _int, _ptr, _ptr,
                       _ptr],
+    # symbols, n, table, bits, incl, stream words, offsets, pass (0 count,
+    # 1 pack), stream
+    "encode_stream": [_ptr, _i64, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _ptr],
     # symbols, n_blocks, table, wmax, rows, stream
     "encode_rows": [_ptr, _i64, _ptr, _int, _ptr, _ptr],
     # words, n_words, offsets, n_blocks, bh, bw, bounds, adj, symbols, out,

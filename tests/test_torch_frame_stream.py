@@ -6,6 +6,7 @@ CPU); the port runs its plain PyTorch path on CPU tensors. Every comparison
 is exact byte equality.
 """
 
+import struct
 import zlib
 
 import numpy as np
@@ -90,6 +91,46 @@ def test_read_shared_matches_jax(name):
     ref, *ref_geo = jfs.read_shared(blob)
     assert geo == ref_geo
     _assert_streams_equal(ours, ref)
+
+
+def _cut_points(blob: bytes) -> dict:
+    """Where to cut an MHTV blob: inside the core, inside the offset index,
+    inside block_init (zero-init modes only) and inside the CRC trailer."""
+    _t, _h, _w, nb, _bd, mode = struct.unpack_from("<IIIIBB", blob, 4)
+    (core_len,) = struct.unpack_from("<I", blob, 22)
+    index = 26 + core_len
+    cuts = {"header": 20, "core": 26 + core_len // 2, "index": index + 2 * nb,
+            "index end": index + 4 * nb - 1, "crc": len(blob) - 2}
+    if mode in (2, 4):
+        cuts["block_init"] = index + 4 * nb + nb // 2
+    return cuts
+
+
+@pytest.mark.parametrize("name", ["delta", "zero_init", "zero_init_delta2d"])
+def test_read_shared_of_a_cut_blob_matches_jax(name):
+    # the reference's own truncation checks cannot fire: np.frombuffer with
+    # a count raises first, so both readers raise numpy's error, or parse
+    # the same stream when only the CRC trailer is cut
+    frames = _frames(2, 16, 24, seed=9)
+    stream = jfs.encode_frames_shared(frames, _jax_cfg(**CONFIGS[name]))
+    blob = jfs.write_shared(stream, 2, 16, 24, _jax_cfg(**CONFIGS[name]),
+                            source_crc32=zlib.crc32(frames.tobytes()))
+    cuts = _cut_points(blob)
+    assert ("block_init" in cuts) == (name != "delta")
+    for where, at in cuts.items():
+        cut = blob[:at]
+        try:
+            ref = jfs.read_shared(cut)
+        except Exception as e:  # noqa: BLE001 - the port must raise the same
+            with pytest.raises(type(e)) as ours:
+                tfs.read_shared(cut)
+            assert str(ours.value) == str(e), where
+            assert where != "crc"
+            continue
+        ours, *geo = tfs.read_shared(cut)
+        assert geo == list(ref[1:]), where
+        _assert_streams_equal(ours, ref[0])
+        assert where == "crc"
 
 
 @pytest.fixture(scope="module")
