@@ -55,9 +55,25 @@ Phases (any failure exits nonzero and prints no result):
    the encoder tests and on a table of 128 secondary lookup tables (the
    ``lut`` variant's T2 read through L1); every S3 variant (``int16_rate``)
    on 2^16 elements.
-   Every kernel's launch count is set to 0 just before phases B, C, D and E
-   and must match the decodes, encodes and probes each made.
-7. Times, with CUDA events over distinct staged inputs: B1 with and without
+7. Phase F, segmented video, random access and MHTS at full size. F1: 150
+   photo frames through ``encode_video`` (per-frame CRCs on), an MHV2 of
+   segments [136, 14]; on the card ``decode_video``, the checked segmented
+   decode, ``decode_range`` of frames 130-140 (across the segments, checked
+   against the per-frame CRCs), ``decode_frame`` 135 and 140 and
+   ``decode_video_region`` 512x512 over frames 134-138 with the end-bit
+   check. F2: 137 frames of i.i.d. near-uniform bytes, no delta, an MHV2
+   whose segment 0 runs to about 3.4e9 bits, so every block of frames
+   86-135 starts past 2^31: ``decode_video``, the checked decode clean and
+   with a flipped bit in frame 120 (it must name segment 0), and
+   ``decode_range`` of frames 128-137. F3: an MHTS clip of 30 photo frames,
+   a table each: ``decode_batch``, ``iter_stream_frames(check=True)`` and
+   ``decode_range``. Every output equals its source frames; then B1 equals
+   its plain version, bytes and end bits, on F1's segment 1, on F2's
+   segment 0 and its flipped mask, and on each of F3's frames, and B2 on
+   F1's region selections.
+   Every kernel's launch count is set to 0 just before phases B, C, D, E
+   and F and must match the decodes, encodes and probes each made.
+8. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -71,7 +87,10 @@ Phases (any failure exits nonzero and prints no result):
    synthetic ones (one table each), each held equal to its plain version
    there first (S2 ``base`` is B1's interval body before its redesign); every S3
    variant and its plain version on 2^22 elements, and the SASS opcodes of
-   the S3 kernels.
+   the S3 kernels; phase F's: the MHV2 decode of F1 whole and each segment
+   alone (host clock; staging, B1 and fetch apart), the host build of each
+   of F3's lookup tables, and F3's MHTS decode (a launch per frame) against
+   one MHTV launch of the same 30 frames.
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``.
@@ -104,6 +123,10 @@ from metalhuffman_tpu_torch.utils.fixtures import (  # noqa: F401
 
 FULL = (30, 1536, 2048)  # (T, H, W): 94.4 MB decoded, 1,474,560 8x8 blocks
 HD = (30, 1080, 1920)
+F1_FRAMES = 150  # phase F1: MHV2 of segments [136, 14] at 2048x1536
+F2_FRAMES = 137  # phase F2: segment 0 runs past 2^31 bits
+F3_FRAMES = 30  # phase F3: the MHTS clip
+F_REGION = (512, 768, 512, 512)  # (y0, x0, rh, rw) of F1's region decode
 TIMED_ITERS = 12
 VARIANTS = 4
 RATE_SMALL = 1 << 16  # S3 elements in phase E
@@ -900,6 +923,366 @@ def phase_e(device) -> tuple[dict, dict]:
     return counts, worst
 
 
+def near_uniform(t: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(T, H, W) i.i.d. random bytes, 16 of the 256 values twice as likely
+    as the others: about 7.98 bits per symbol under codes of 7, 8 and 9
+    bits. (Exactly uniform bytes get a complete 8-bit code, under which a
+    flipped bit keeps every block's length and the end-bit check cannot see
+    it.)"""
+    rng = np.random.default_rng(seed)
+    p = np.ones(256)
+    p[rng.choice(256, 16, replace=False)] = 2
+    return rng.choice(256, size=(t, h, w), p=p / p.sum()).astype(np.uint8)
+
+
+def contrast_frames(h: int, w: int, t: int) -> np.ndarray:
+    """(T, H, W) photo frames at T contrasts about mid-gray (0.55 to 1.42):
+    each frame's deltas, and so its Huffman table, differ."""
+    img = photo_frames(h, w, 1)[0].astype(np.float32)
+    return np.stack([np.clip(128 + (img - 128) * (0.55 + 0.03 * i), 0, 255)
+                     .astype(np.uint8) for i in range(t)])
+
+
+def seek_flip(stream, lo_block: int, hi_block: int, seed: int,
+              cfg) -> tuple[int, int]:
+    """A code bit inside blocks [lo_block, hi_block) of an 8x8 stream whose
+    flip the plain version's end-bit check flags -> (bit, block). Each try,
+    from a seeded start, flips the bit in a copy of its block's bytes alone
+    and decodes that block on the CPU."""
+    from metalhuffman_tpu_torch.core import container
+    from metalhuffman_tpu_torch.models.image_codec import decode_blocks_selection
+
+    offs = stream.block_offsets.astype(np.int64)
+    rng = np.random.default_rng(seed)
+    for _ in range(64):
+        b = int(rng.integers(lo_block, hi_block))
+        bit = int(offs[b] + rng.integers(0, offs[b + 1] - offs[b]))
+        lo = int(offs[b]) // 32 * 4  # the block's first word, in bytes
+        code = stream.code_bytes[lo : int(offs[b + 1]) // 8 + 16].copy()
+        code[bit // 8 - lo] ^= 128 >> (bit % 8)
+        view = container.EncodedStream(
+            128, stream.widths, code,
+            (offs[b : b + 2] - 8 * lo).astype(np.uint32))
+        _, err = decode_blocks_selection(view, [0], 8, 8, cfg, check=True,
+                                         device="cpu")
+        if err.any():
+            return bit, b
+    raise PhaseError("64 flipped bits, none flagged by the plain version")
+
+
+def b1_against_plain(prep, cfg, emit_end: bool) -> int:
+    """B1 on a staged batch against its plain version on the same CUDA
+    tensors, bytes and (with ``emit_end``) end bits -> max abs difference.
+    The kernel's launch is counted outside any phase's window."""
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    geo = dict(num_frames=prep.num_frames, bh=prep.bh, bw=prep.bw,
+               delta=cfg.delta and not cfg.delta2d, delta2d=cfg.delta2d,
+               emit_end=emit_end)
+    got = decode_cuda.decode_images(*args, **geo, table=prep.table)
+    want = decode_cuda.decode_images_plain(*args, **geo)
+    if not emit_end:
+        return int((got.int() - want.int()).abs().max())
+    return max(int((got[0].int() - want[0].int()).abs().max()),
+               int((got[1].long() - want[1].long()).abs().max()))
+
+
+def phase_f(device) -> tuple[dict, dict, dict]:
+    """Segmented MHV2, random access and MHTS at full size (F1, F2, F3);
+    returns (the launches each kernel made, after checking them; the max
+    absolute difference of B1 and B2 from their plain versions on F's
+    inputs, all 0; F1's blob and F3's clip for :func:`stream_timings`)."""
+    import torch
+
+    import metalhuffman_tpu_torch as mt
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.models.image_codec import stage_selection
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    _t, h, w = FULL
+    # F1: 150 photo frames, 471,859,200 bytes: MHV2 segments of 136 and 14
+    f1 = photo_frames(h, w, F1_FRAMES)
+    t0 = time.perf_counter()
+    blob1 = mt.encode_video(f1, CodecConfig(frame_crcs=True))
+    enc1 = time.perf_counter() - t0
+    segs1, *_ = fs.read_segmented(blob1)
+    check([ft for _, ft in segs1] == [136, 14],
+          f"F1: segments {[ft for _, ft in segs1]}, expected [136, 14]")
+    print(f"phase F1: encode_video of {F1_FRAMES}x2048x1536 photo frames -> "
+          f"MHV2 ({len(blob1)} B, segments [136, 14], FCRC) in {enc1:.2f} s")
+    # F2: 137 near-uniform frames, no delta: segment 0 past 2^31 bits
+    f2 = near_uniform(F2_FRAMES, h, w)
+    cfg2 = CodecConfig(delta=False)
+    blob2 = mt.encode_video(f2, cfg2)
+    segs2, *_ = fs.read_segmented(blob2)
+    s20 = segs2[0][0]
+    per = (h // 8) * (w // 8)
+    past = np.flatnonzero(s20.block_offsets >= np.uint32(1 << 31))
+    first = int(past[0]) if past.size else None
+    check([ft for _, ft in segs2] == [136, 1] and first is not None
+          and first <= 86 * per,
+          f"F2: segments {[ft for _, ft in segs2]}, first block offset past "
+          f"2^31: {first}")
+    print(f"phase F2: encode_video of {F2_FRAMES}x2048x1536 near-uniform "
+          f"frames, no delta -> MHV2 ({len(blob2)} B, segments [136, 1]); "
+          f"segment 0 is {8 * (s20.code_bytes.size - 2)} bits, {past.size} "
+          f"block offsets past 2^31 from block {first} (frame "
+          f"{None if first is None else first // per})")
+    check(s20.block_offsets[120 * per] >= np.uint32(1 << 31),
+          "F2: frame 120 starts below 2^31 bits")
+    fbit, fblock = seek_flip(s20, 120 * per, 121 * per, 120, cfg2)
+    bsegs = [(flip_bit(s20, fbit), 136), segs2[1]]
+    # F3: an MHTS clip of 30 photo frames, one table each
+    f3 = contrast_frames(h, w, F3_FRAMES)
+    streams3 = fs.encode_frames(f3)
+    blob3 = fs.write_stream(streams3, h, w, source_crc32s=[
+        zlib.crc32(f.tobytes()) for f in f3])
+    print(f"phase F3: MHTS of {F3_FRAMES}x2048x1536 photo frames "
+          f"({len(blob3)} B, {len({s.widths.tobytes() for s in streams3})} "
+          "distinct tables)")
+    y0, x0, rh, rw = F_REGION
+    expected = expect()
+
+    reset_launches()
+    got = mt.decode_video(blob1, device)  # CRC-checked
+    expected["decode_images"] += 2
+    check(np.array_equal(got, f1), "F1 decode_video: frames differ")
+    del got
+    got = fs.decode_frames_segmented(segs1, h, w, CodecConfig(), check=True,
+                                     device=device)
+    expected["decode_images"] += 2
+    check(np.array_equal(got, f1), "F1 checked decode: frames differ")
+    del got
+    got, *_ = fs.decode_range(blob1, 130, 140, device=device)  # FCRC-checked
+    expected["decode_images"] += 2
+    check(np.array_equal(got, f1[130:140]), "F1 decode_range 130-140")
+    for t in (135, 140):
+        si, ft = (0, t) if t < 136 else (1, t - 136)
+        got = fs.decode_frame(segs1[si][0], ft, h, w, device=device)
+        expected["decode_images"] += 1
+        check(np.array_equal(got, f1[t]), f"F1 decode_frame {t}")
+    got = fs.decode_video_region(blob1, 134, 139, y0, x0, rh, rw, check=True,
+                                 device=device)
+    expected["decode_blocks"] += 2
+    check(np.array_equal(got, f1[134:139, y0:y0 + rh, x0:x0 + rw]),
+          "F1 decode_video_region 134-138")
+    print("phase F1 ok: decode_video (CRC-checked), the checked decode, "
+          "decode_range 130-140 (FCRC-checked, across the segments), "
+          f"decode_frame 135 and 140, decode_video_region {rh}x{rw} at "
+          f"({y0}, {x0}) over frames 134-138 with check: all equal to the "
+          "frames")
+
+    got = mt.decode_video(blob2, device)
+    expected["decode_images"] += 2
+    check(np.array_equal(got, f2), "F2 decode_video: frames differ")
+    del got
+    got = fs.decode_frames_segmented(segs2, h, w, cfg2, check=True,
+                                     device=device)
+    expected["decode_images"] += 2
+    check(np.array_equal(got, f2), "F2 checked decode: frames differ")
+    del got
+    try:
+        fs.decode_frames_segmented(bsegs, h, w, cfg2, check=True,
+                                   device=device)
+    except ValueError as e:
+        check("segment 0" in str(e), f"F2 flipped checked decode: {e}")
+        print(f"phase F2 ok: bit {fbit} flipped (block {fblock}, frame "
+              f"{fblock // per}): the checked decode raises: {e}")
+    else:
+        raise PhaseError("F2: the checked decode of the flipped stream passed")
+    expected["decode_images"] += 1  # segment 0 raises before segment 1
+    got, *_ = fs.decode_range(blob2, 128, 137, device=device)
+    expected["decode_images"] += 2
+    check(np.array_equal(got, f2[128:137]), "F2 decode_range 128-137")
+    print("phase F2 ok: decode_video, the checked decode (clean: no block "
+          "flagged), decode_range 128-137: all equal to the frames")
+
+    prep3 = fs.prepare_batch(streams3, h, w, device=device)
+    got = fs.decode_batch(prep3).cpu().numpy()
+    expected["decode_images"] += F3_FRAMES
+    check(np.array_equal(got, f3), "F3 decode_batch: frames differ")
+    for i, frame, err, crc in fs.iter_stream_frames(blob3, check=True,
+                                                    device=device):
+        check(not err.any() and np.array_equal(frame, f3[i])
+              and zlib.crc32(frame.tobytes()) == crc,
+              f"F3 iter_stream_frames(check=True): frame {i}")
+    expected["decode_images"] += F3_FRAMES
+    got, *_ = fs.decode_range(blob3, 10, 15, device=device)
+    expected["decode_images"] += 5
+    check(np.array_equal(got, f3[10:15]), "F3 decode_range 10-15")
+    print(f"phase F3 ok: decode_batch ({F3_FRAMES} launches, one table "
+          "each), iter_stream_frames(check=True) with the record CRCs, "
+          "decode_range 10-15: all equal to the frames")
+    counts = read_launches()
+    check(counts == expected,
+          f"phase F: kernel launches {counts}, expected {expected}")
+    print(f"phase F launches: {counts}")
+
+    # each kernel against its plain version on F's inputs (not counted)
+    worst = {"decode_images": 0, "decode_blocks": 0}
+    cfg = CodecConfig()
+    for name, stream, ft, c in (("F1 segment 1", segs1[1][0], 14, cfg),
+                                ("F2 segment 0", s20, 136, cfg2)):
+        prep = fs.prepare_shared(stream, ft, h, w, c, device=device)
+        for emit_end in (False, True):
+            err = b1_against_plain(prep, c, emit_end)
+            worst["decode_images"] = max(worst["decode_images"], err)
+            check(err == 0, f"{name}: B1 (emit_end={emit_end}) differs from "
+                  f"plain by {err}")
+        del prep
+        torch.cuda.empty_cache()
+        print(f"phase F ok: B1 == plain on {name} ({ft} frames), with and "
+              "without end bits")
+    bprep = fs.prepare_shared(bsegs[0][0], 136, h, w, cfg2, device=device,
+                              check=True)
+    _, err = fs.decode_shared_step_checked(bprep, cfg2)
+    ref = plain_mask(bprep, cfg2)
+    check(np.array_equal(err, ref) and err[fblock]
+          and np.flatnonzero(err).min() // per == 120,
+          f"F2 flipped: kernel mask ({int(err.sum())} flagged) differs from "
+          f"the plain version's ({int(ref.sum())}) or misses frame 120")
+    print(f"phase F ok: F2 flipped segment 0: B1's mask == plain "
+          f"({int(err.sum())} of {err.size} blocks flagged, from block "
+          f"{np.flatnonzero(err).min()})")
+    del bprep
+    torch.cuda.empty_cache()
+    bw = w // 8
+    frame_sel = (np.arange(y0 // 8, (y0 + rh) // 8)[:, None] * bw
+                 + np.arange(x0 // 8, (x0 + rw) // 8)[None, :]).ravel()
+    for si, (stream, lo, hi) in enumerate(((segs1[0][0], 134, 136),
+                                           (segs1[1][0], 0, 3))):
+        sel = (frame_sel[None, :] + per * np.arange(lo, hi)[:, None]).ravel()
+        staged, table = stage_selection(stream, sel, device=device)
+        got = decode_cuda.decode_blocks(*staged, num_steps=64, delta=True,
+                                        emit_end=True, table=table)
+        want = decode_cuda.decode_blocks_plain(*staged, num_steps=64,
+                                               delta=True, emit_end=True)
+        err = max(int((got[0].int() - want[0].int()).abs().max()),
+                  int((got[1].long() - want[1].long()).abs().max()))
+        worst["decode_blocks"] = max(worst["decode_blocks"], err)
+        check(err == 0, f"F1 region selection, segment {si}: B2 differs "
+              f"from plain by {err}")
+    for i, f in enumerate(prep3.frames):
+        err = int((fs.decode_batch(dataclasses.replace(prep3, frames=(f,)))
+                   .int() - decode_cuda.decode_images_plain(
+                       f.words, f.offsets, f.symbols, f.bounds, f.adj,
+                       num_frames=1, bh=f.bh, bw=f.bw, delta=True).int()
+                   ).abs().max())
+        worst["decode_images"] = max(worst["decode_images"], err)
+        check(err == 0, f"F3 frame {i}: B1 differs from plain by {err}")
+    print("phase F ok: B2 == plain on F1's region selections (bytes and end "
+          f"bits); B1 == plain on each of F3's {F3_FRAMES} tables")
+    torch.cuda.synchronize()
+    return counts, worst, {"blob1": blob1, "f2 segment 0": s20, "f3": f3,
+                           "streams3": streams3}
+
+
+def stream_timings(device, card: str, ctx: dict) -> None:
+    """Phase F's times: the MHV2 decode of F1 whole and each segment alone
+    (host clock; each segment's staging, kernel and fetch apart, the kernel
+    with CUDA events); the host build of each of F3's lookup tables; F3's
+    MHTS decode (one launch per frame) against one MHTV launch of the same
+    30 frames."""
+    import torch
+
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    _t, h, w = FULL
+    cfg = CodecConfig()
+    segs, total, *_ = fs.read_segmented(ctx["blob1"])
+
+    def whole():
+        return list(fs.iter_frames_segmented(segs, h, w, cfg, device=device))
+
+    host_timed(f"MHV2 decode, whole ({total} frames, segments [136, 14], "
+               "iter_frames_segmented)", lambda _: whole(), [None], card,
+               total * h * w)
+    alone = []
+    for si, (stream, ft) in enumerate(segs):
+        alone.append(host_timed(
+            f"MHV2 segment {si} alone ({ft} frames, iter_frames_segmented)",
+            lambda s: list(fs.iter_frames_segmented([s], h, w, cfg,
+                                                    device=device)),
+            [(stream, ft)], card, ft * h * w))
+        words, stage, fetch = [], [], []
+        for _ in range(HOST_ITERS):
+            t0 = time.perf_counter()
+            decode_cuda.prepare_stream(stream)
+            words.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep = fs.prepare_shared(stream, ft, h, w, cfg, device=device)
+            torch.cuda.synchronize()
+            stage.append((time.perf_counter() - t0) * 1e3)
+            raw = fs.decode_shared_step(prep, cfg, raw=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw.cpu().numpy()
+            fetch.append((time.perf_counter() - t0) * 1e3)
+        mid = HOST_ITERS // 2
+        print(f"time MHV2 segment {si}: staging (prepare_shared, the bytes "
+              f"swapped on the card) median {sorted(stage)[mid]:.4f} ms, "
+              f"against {sorted(words)[mid]:.4f} ms for the host word view "
+              f"alone (prepare_stream); fetch {sorted(fetch)[mid]:.4f} ms "
+              f"({raw.numel()} B), host clock, on {card}")
+        timed(f"B1 kernel MHV2 segment {si} ({ft} frames, decode_shared_step "
+              "raw)", lambda p: fs.decode_shared_step(p, cfg, raw=True),
+              [prep], card, ft * h * w)
+        del prep, raw
+    print(f"time MHV2 segments alone, summed: {sum(alone):.4f} ms, on {card}")
+    cfg2 = CodecConfig(delta=False)
+    prep = fs.prepare_shared(ctx["f2 segment 0"], 136, h, w, cfg2,
+                             device=device)
+    timed("B1 kernel F2 segment 0 (136 frames, offsets past 2^31, no delta)",
+          lambda p: fs.decode_shared_step(p, cfg2, raw=True), [prep], card,
+          136 * h * w)
+    del prep
+
+    streams = ctx["streams3"]
+    builds = []
+    for s in streams:
+        meta = decode_cuda.canonical_meta(s.widths)
+        t0 = time.perf_counter()
+        decode_cuda._lookup_entries.__wrapped__(meta.bounds, meta.adj,
+                                                meta.symbols.tobytes())
+        builds.append((time.perf_counter() - t0) * 1e3)
+    builds.sort()
+    print(f"time lookup table host build (lookup_entries, uncached): median "
+          f"{builds[len(builds) // 2]:.4f} ms over {len(builds)} tables (min "
+          f"{builds[0]:.4f}, max {builds[-1]:.4f}), host clock, on {card}")
+
+    def prepare_cold(_):
+        decode_cuda._lookup_entries.cache_clear()
+        return fs.prepare_batch(streams, h, w, device=device)
+
+    n3 = len(streams) * h * w
+    host_timed(f"MHTS prepare_batch {len(streams)} frames, tables built",
+               prepare_cold, [None], card, n3)
+    host_timed(f"MHTS prepare_batch {len(streams)} frames, tables cached",
+               lambda _: fs.prepare_batch(streams, h, w, device=device),
+               [None], card, n3)
+    prep3 = fs.prepare_batch(streams, h, w, device=device)
+    mhtv = fs.encode_frames_shared(ctx["f3"])
+    prep_v = fs.prepare_shared(mhtv, len(streams), h, w, device=device)
+    timed(f"MHTS decode_batch {len(streams)}x2048x1536 ({len(streams)} B1 "
+          "launches, a table each)", fs.decode_batch, [prep3], card, n3)
+    back_to_back("MHTS decode_batch", fs.decode_batch, [prep3], card, n3)
+    timed(f"MHTV decode_shared_step {len(streams)}x2048x1536 (one B1 "
+          "launch, one table)", lambda p: fs.decode_shared_step(p, cfg),
+          [prep_v], card, n3)
+    back_to_back("MHTV decode_shared_step",
+                 lambda p: fs.decode_shared_step(p, cfg), [prep_v], card, n3)
+    host_timed("MHTS decode_batch + fetch", lambda p: fs.decode_batch(p).cpu(),
+               [prep3], card, n3)
+    host_timed("MHTV decode_shared_step + fetch",
+               lambda p: fs.decode_shared_step(p, cfg).cpu(), [prep_v], card,
+               n3)
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
           unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
@@ -1628,11 +2011,18 @@ def main(argv: list[str]) -> int:
     counts, errs = phase_e(device)
     for name, count in counts.items():
         launches[name] += count
+    counts, f_errs, f_ctx = phase_f(device)
+    for name, count in counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
     image_timings(device, card)
     entries.update(probe_timings(device, card))
+    stream_timings(device, card, f_ctx)
+    del f_ctx
+    max_err = max(max_err, f_errs["decode_images"])
+    b2_err = max(b2_err, f_errs["decode_blocks"])
     errs.update(decode_images=max_err, decode_blocks=b2_err,
                 encode_stream=stream_err, encode_rows=b3_err)
     for name, err in errs.items():

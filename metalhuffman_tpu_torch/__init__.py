@@ -12,8 +12,11 @@ use). It imports no JAX and nothing of the JAX package.
 - ``ops.encode_cuda``: the hybrid device encoder
   (``encode_symbols_hybrid``): the row-packing kernel for 8x8 blocks, its
   plain PyTorch version, and the host row merge and tail.
-- ``models.frame_stream``: shared-table (MHTV) video encode, container I/O,
-  batched and checked decode.
+- ``models.frame_stream``: video encode and container I/O: shared-table
+  MHTV, segmented MHV2 (segments that fit u32 block offsets, decoded two in
+  flight), per-frame-table MHTS, the per-frame CRC extension; batched and
+  checked decode, and random access (``decode_range``, ``decode_frame``,
+  ``decode_video_region``).
 - ``models.image_codec``: the single-image codec (MHT1), region decode.
 
 Every entry point decodes (and the hybrid encoder packs) on the card unless
@@ -39,29 +42,65 @@ def decode_image(blob: bytes, device="cuda"):
     return ImageCodec().decode(blob, device=device)
 
 
+def encode_video(frames, config=None) -> bytes:
+    """(T, H, W) uint8 frames -> MHTV container bytes (host encode), or
+    segmented MHV2 when the stream could pass u32 block offsets.
+
+    Records the CRC-32 of the source frames, and with ``config.frame_crcs``
+    a per-frame CRC table for random access. ``config.temporal`` (MHVT) is
+    not ported yet.
+    """
+    import zlib
+
+    import numpy as np
+
+    from .models import frame_stream
+
+    if config is not None and config.temporal:
+        raise NotImplementedError(
+            "temporal MHVT containers are still to port "
+            "(ROADMAP.md queue A item 8)")
+    frames_arr = np.asarray(frames)
+    t, h, w = frames_arr.shape
+    crc = zlib.crc32(np.ascontiguousarray(frames_arr).tobytes())
+    fcrcs = None
+    if config is not None and config.frame_crcs:
+        fcrcs = frame_stream.compute_frame_crcs(frames_arr)
+    segs = frame_stream.encode_frames_segmented(frames_arr, config)
+    if len(segs) == 1:
+        return frame_stream.write_shared(
+            segs[0][0], t, h, w, config, source_crc32=crc, frame_crcs=fcrcs)
+    return frame_stream.write_segmented(segs, h, w, config, source_crc32=crc,
+                                        frame_crcs=fcrcs)
+
+
 def decode_video(blob: bytes, device="cuda"):
-    """MHTV container bytes -> (T, H, W) uint8 numpy frames, decoded on
-    ``device`` and checked against the recorded source CRC-32.
+    """MHTV or MHV2 container bytes -> (T, H, W) uint8 numpy frames, decoded
+    on ``device`` and checked against the recorded source CRC-32.
 
     The container fixes block_dim and precoder; ``device`` picks the decode
-    route (the CUDA kernels or, on the CPU, their plain versions). Segmented
-    (MHV2) and temporal (MHVT) containers are not ported yet.
+    route (the CUDA kernels or, on the CPU, their plain versions). MHV2
+    segments decode two in flight. Temporal (MHVT) containers are not
+    ported yet.
     """
     from .models import frame_stream
     from .models.config import CodecConfig
 
-    if blob[:4] == b"MHV2":
-        raise NotImplementedError(
-            "segmented MHV2 containers are still to port "
-            "(ROADMAP.md queue A item 7)")
     if blob[:4] == b"MHVT":
         raise NotImplementedError(
             "temporal MHVT containers are still to port "
             "(ROADMAP.md queue A item 8)")
-    stream, t, h, w, bd, delta = frame_stream.read_shared(blob)
-    cfg = CodecConfig(block_dim=bd, delta=delta,
-                      delta2d=stream.predictor == "2d")
-    frames = frame_stream.decode_frames_shared(
-        stream, t, h, w, cfg, device=device).cpu().numpy()
+    if blob[:4] == frame_stream.SEGMENTED_MAGIC:
+        segs, _t, h, w, bd, delta = frame_stream.read_segmented(blob)
+        cfg = CodecConfig(block_dim=bd, delta=delta,
+                          delta2d=segs[0][0].predictor == "2d")
+        frames = frame_stream.decode_frames_segmented(segs, h, w, cfg,
+                                                      device=device)
+    else:
+        stream, t, h, w, bd, delta = frame_stream.read_shared(blob)
+        cfg = CodecConfig(block_dim=bd, delta=delta,
+                          delta2d=stream.predictor == "2d")
+        frames = frame_stream.decode_frames_shared(
+            stream, t, h, w, cfg, device=device).cpu().numpy()
     frame_stream.verify_source_crc32(frames, frame_stream.source_crc32(blob))
     return frames

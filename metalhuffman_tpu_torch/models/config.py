@@ -1,5 +1,5 @@
 """Codec configuration: the fields of ``metalhuffman_tpu.models.CodecConfig``
-that the port's decode paths read, with the same names and defaults."""
+that the port reads, with the same names and defaults."""
 
 from __future__ import annotations
 
@@ -22,6 +22,13 @@ class CodecConfig:
     #: 2-D within-block predictor (row 0 delta-left, rows 1.. delta-up);
     #: requires delta=True, composes with zero_init
     delta2d: bool = False
+    #: record a per-frame CRC-32 table in video containers (the MHTV/MHV2
+    #: FCRC extension trailer), so random access (``decode_range``) verifies
+    #: exactly the frames it returns; 4 bytes per frame
+    frame_crcs: bool = False
+    #: inter-frame residuals in an MHVT wrapper: not ported yet (ROADMAP.md
+    #: queue A item 8), so ``encode_video`` refuses it
+    temporal: bool = False
 
     def __post_init__(self):
         # the kernels decode 4 symbols per refill, as the TPU kernel does

@@ -175,6 +175,28 @@ def _check_selection_ends(stream: container.EncodedStream, sel: np.ndarray,
     return err
 
 
+def stage_selection(stream: container.EncodedStream, sel: np.ndarray, *,
+                    device="cuda"):
+    """Stage the inputs of a selection's decode on ``device`` -> ((words,
+    offsets, symbols, bounds, adj), table), the arguments of
+    ``decode_cuda.decode_blocks`` and its lookup table (see
+    :func:`decode_blocks_selection`)."""
+    sub_offsets = stream.block_offsets[np.asarray(sel, np.int64)].astype(
+        np.int64)
+    total_bits = 8 * (stream.code_bytes.size - bitstream.READ_AHEAD_PAD_BYTES)
+    lo_word = int(sub_offsets.min()) // 32
+    hi_word = (int(sub_offsets.max())
+               + decode_cuda.max_block_bits(stream.block_offsets, total_bits)
+               ) // 32 + 1
+    words, _ = decode_cuda.stage_words(
+        [stream.code_bytes[4 * lo_word : 4 * hi_word]], device)
+    offsets = (sub_offsets - 32 * lo_word).astype(np.uint32)
+    meta = decode_cuda.canonical_meta(stream.widths)
+    return ((words, torch.from_numpy(offsets.view(np.int32)).to(device),
+             torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj),
+            decode_cuda.lookup_table(meta, device))
+
+
 def decode_blocks_selection(stream: container.EncodedStream,
                             sel: np.ndarray, gh: int, gw: int,
                             cfg: CodecConfig, check: bool = False, *,
@@ -197,26 +219,13 @@ def decode_blocks_selection(stream: container.EncodedStream,
     """
     sel = np.asarray(sel, np.int64)
     bd = cfg.block_dim
-    sub_offsets = stream.block_offsets[sel].astype(np.int64)
-    total_bits = 8 * (stream.code_bytes.size - bitstream.READ_AHEAD_PAD_BYTES)
-    lo_word = int(sub_offsets.min()) // 32
-    hi_word = (int(sub_offsets.max())
-               + decode_cuda.max_block_bits(stream.block_offsets, total_bits)
-               ) // 32 + 1
-    words = bitstream.bytes_to_be_words(
-        stream.code_bytes[4 * lo_word : 4 * hi_word],
-        pad_words=decode_cuda.PAD_WORDS)
-    offsets = (sub_offsets - 32 * lo_word).astype(np.uint32)
-    meta = decode_cuda.canonical_meta(stream.widths)
     # delta2d reconstructs in the kernel at 8x8 only
     in_kernel_d2 = cfg.delta2d and bd == 8
+    staged, table = stage_selection(stream, sel, device=device)
     blk = decode_cuda.decode_blocks(
-        torch.from_numpy(words.view(np.int32)).to(device),
-        torch.from_numpy(offsets.view(np.int32)).to(device),
-        torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj,
-        num_steps=cfg.block_size, delta=cfg.delta and not cfg.delta2d,
-        delta2d=in_kernel_d2, emit_end=check,
-        table=decode_cuda.lookup_table(meta, device))
+        *staged, num_steps=cfg.block_size,
+        delta=cfg.delta and not cfg.delta2d, delta2d=in_kernel_d2,
+        emit_end=check, table=table)
     if check:
         blk, end = blk
     if cfg.delta2d and not in_kernel_d2:

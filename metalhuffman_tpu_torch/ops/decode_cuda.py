@@ -108,7 +108,11 @@ def interval_windows(meta: CanonicalMeta) -> tuple[np.ndarray, np.ndarray]:
     ``w = 1 + #{bounds[1:] <= window}``, ``symbol = symbols[(adj[w-1] +
     (window >> (16 - w))) & 255]``. Two (65536,) int64 arrays."""
     win = np.arange(1 << 16, dtype=np.int64)
-    w = 1 + (win[:, None] >= np.asarray(meta.bounds[1:], np.int64)).sum(1)
+    # the count of bounds[1:] <= window, by bisection: the bounds never
+    # decrease with L (first_rj[L+1] << (15-L) is (first_rj[L] + counts[L])
+    # << (16-L)), over-subscribed and malformed tables included
+    w = 1 + np.searchsorted(np.asarray(meta.bounds[1:], np.int64), win,
+                            side="right")
     idx = np.asarray(meta.adj, np.int64)[w - 1] + (win >> (16 - w))
     return w, meta.symbols[idx & 255].astype(np.int64)
 
@@ -168,12 +172,35 @@ def lookup_table(meta: CanonicalMeta, device) -> LookupTable:
     return LookupTable(torch.from_numpy(ent).to(device))
 
 
+def stream_window(stream, block_size: int):
+    """The code bytes a stream's blocks of ``block_size`` symbols reach and
+    their u32 offsets into them -> (code, offsets).
+
+    From the word of the lowest offset to 16 * ``block_size`` bits past the
+    highest (no code is longer than 16 bits, so no block, well-formed or
+    not, reads further), with the offsets rebased by that multiple of 32
+    bits, which keeps every ``>> 5`` and ``& 31`` of the decode. A whole
+    stream keeps all its words; a frame slice of a long segment
+    (``frame_slice``) stages its own frames' words, not the segment's.
+    """
+    offsets = np.asarray(stream.block_offsets, dtype=np.uint32)
+    code = stream.code_bytes
+    if offsets.size:
+        lo_word = int(offsets.min()) >> 5
+        hi_word = (int(offsets.max()) + 16 * block_size) // 32 + 1
+        code = code[4 * lo_word : 4 * hi_word]
+        offsets = offsets - np.uint32(32 * lo_word)
+    return code, offsets
+
+
 def prepare_stream(stream):
     """Host staging of an EncodedStream -> (meta, words, offsets).
 
     ``words`` is the big-endian u32 word stream as int32 (same bits) with
     ``PAD_WORDS`` zero words appended; ``offsets`` the u32 block bit offsets
-    as int32 (same bits; consumers read them as unsigned).
+    as int32 (same bits; consumers read them as unsigned). The decode paths
+    stage the same words with :func:`stage_words`, byte-swapped on the
+    device.
 
     Two pad words are enough, at any block size: a well-formed block's
     last 4-symbol group starts at a bit ``p <= total_bits - 4`` (each of its
@@ -187,6 +214,26 @@ def prepare_stream(stream):
     words = bitstream.bytes_to_be_words(stream.code_bytes, pad_words=PAD_WORDS)
     offsets = np.asarray(stream.block_offsets, dtype=np.uint32)
     return meta, words.view(np.int32), offsets.view(np.int32)
+
+
+def stage_words(codes, device) -> tuple[torch.Tensor, list[int]]:
+    """Code byte arrays -> their big-endian u32 words as one int32 tensor on
+    ``device`` (the ``words`` of :func:`prepare_stream`, each array's words
+    followed by ``PAD_WORDS`` zero words), and the word where each array's
+    words start.
+
+    The bytes are copied to the device as they are and byte-swapped there,
+    so the host does no per-word work (on a long segment that work took
+    longer than the copy; PERF.md).
+    """
+    n_words = [(c.size + 3) // 4 + PAD_WORDS for c in codes]
+    starts = np.cumsum([0] + n_words).tolist()
+    buf = torch.zeros(4 * starts[-1], dtype=torch.uint8, device=device)
+    for c, at in zip(codes, starts):
+        buf[4 * at : 4 * at + c.size].copy_(
+            torch.from_numpy(np.ascontiguousarray(c, dtype=np.uint8)))
+    words = buf.view(-1, 4).flip(1).contiguous().view(torch.int32).view(-1)
+    return words, starts[:-1]
 
 
 def max_block_bits(block_offsets: np.ndarray, total_bits: int) -> int:
@@ -374,13 +421,35 @@ def launch_shape(name: str, n_words: int, n_blocks: int,
                      "registers", "local_bytes"), shape))
 
 
+def _check_out(out: torch.Tensor | None, shape: tuple, words: torch.Tensor,
+               align: int) -> None:
+    """Validate the ``out`` a caller gave a wrapper (None passes): ``align``
+    is the widest store the kernel makes into it, in bytes."""
+    if out is not None and (
+            out.dtype != torch.uint8 or tuple(out.shape) != shape
+            or not out.is_contiguous() or out.device != words.device
+            or out.data_ptr() % align):
+        raise ValueError(f"out must be a contiguous, {align}-byte aligned "
+                         f"uint8 {shape} tensor on {words.device}")
+
+
+def _plain_into(out: torch.Tensor | None, result, emit_end: bool):
+    """A plain version's result, copied into ``out`` when there is one."""
+    if out is None:
+        return result
+    out.copy_(result[0] if emit_end else result)
+    return (out, result[1]) if emit_end else out
+
+
 def decode_images(words: torch.Tensor, offsets: torch.Tensor,
                   symbols: torch.Tensor, bounds, adj, *, num_frames: int,
                   bh: int, bw: int, delta: bool, delta2d: bool = False,
-                  emit_end: bool = False, table: LookupTable | None = None):
+                  emit_end: bool = False, table: LookupTable | None = None,
+                  out: torch.Tensor | None = None):
     """Decode a staged shared-table batch of 8x8 blocks -> (T, bh*8, bw*8)
     uint8, and with ``emit_end`` also the (T*bh*bw,) int32 row-local end
-    bits in stream order.
+    bits in stream order. With ``out`` the frames go there (the MHTS batch
+    decode writes each frame's launch into one (T, H, W) tensor).
 
     ``words``: (n,) int32 big-endian code words (:func:`prepare_stream`);
     ``offsets``: (T*bh*bw,) int32 block bit offsets (read as u32);
@@ -392,13 +461,17 @@ def decode_images(words: torch.Tensor, offsets: torch.Tensor,
     """
     mode = _mode(delta, delta2d)
     nb = num_frames * bh * bw
-    if _check_inputs(words, offsets, symbols, bounds, adj, nb) == "cpu":
-        return decode_images_plain(
+    kind = _check_inputs(words, offsets, symbols, bounds, adj, nb)
+    _check_out(out, (num_frames, bh * 8, bw * 8), words, 16)
+    if kind == "cpu":
+        return _plain_into(out, decode_images_plain(
             words, offsets, symbols, bounds, adj, num_frames=num_frames,
-            bh=bh, bw=bw, delta=delta, delta2d=delta2d, emit_end=emit_end)
+            bh=bh, bw=bw, delta=delta, delta2d=delta2d, emit_end=emit_end),
+            emit_end)
     _check_table(table, words)
-    out = torch.empty((num_frames, bh * 8, bw * 8), dtype=torch.uint8,
-                      device=words.device)
+    if out is None:
+        out = torch.empty((num_frames, bh * 8, bw * 8), dtype=torch.uint8,
+                          device=words.device)
     end = (torch.empty(nb, dtype=torch.int32, device=words.device)
            if emit_end else None)
     if nb:
@@ -410,10 +483,11 @@ def decode_images(words: torch.Tensor, offsets: torch.Tensor,
 def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
                   symbols: torch.Tensor, bounds, adj, *, num_steps: int,
                   delta: bool, delta2d: bool = False, emit_end: bool = False,
-                  table: LookupTable | None = None):
+                  table: LookupTable | None = None,
+                  out: torch.Tensor | None = None):
     """Decode staged blocks of ``num_steps`` symbols -> (nb, num_steps)
     uint8 in the order of ``offsets``, and with ``emit_end`` also the (nb,)
-    int32 row-local end bits.
+    int32 row-local end bits. With ``out`` the blocks go there.
 
     The inputs are those of :func:`decode_images`; ``offsets`` may be in any
     order and may repeat. ``delta2d`` (in-kernel 2-D predictor) needs
@@ -423,12 +497,17 @@ def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
     mode = _mode(delta, delta2d)
     _check_steps(num_steps, delta2d)
     nb = offsets.numel()
-    if _check_inputs(words, offsets, symbols, bounds, adj, nb) == "cpu":
-        return decode_blocks_plain(
+    kind = _check_inputs(words, offsets, symbols, bounds, adj, nb)
+    # 16-byte stores where a block is a multiple of 16 symbols, else 4-byte
+    _check_out(out, (nb, num_steps), words, 16 if num_steps % 16 == 0 else 4)
+    if kind == "cpu":
+        return _plain_into(out, decode_blocks_plain(
             words, offsets, symbols, bounds, adj, num_steps=num_steps,
-            delta=delta, delta2d=delta2d, emit_end=emit_end)
+            delta=delta, delta2d=delta2d, emit_end=emit_end), emit_end)
     _check_table(table, words)
-    out = torch.empty((nb, num_steps), dtype=torch.uint8, device=words.device)
+    if out is None:
+        out = torch.empty((nb, num_steps), dtype=torch.uint8,
+                          device=words.device)
     end = (torch.empty(nb, dtype=torch.int32, device=words.device)
            if emit_end else None)
     if nb:

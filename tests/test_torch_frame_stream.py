@@ -222,9 +222,20 @@ def test_port_roundtrip_through_its_own_writer():
 
 
 def test_unported_containers_and_block_dims_raise():
-    for magic in (b"MHV2", b"MHVT"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            metalhuffman_tpu_torch.decode_video(magic + bytes(32), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        metalhuffman_tpu_torch.decode_video(b"MHVT" + bytes(32), "cpu")
+    # MHV2 is ported: a segmented blob of the JAX package decodes to its
+    # frames, as the JAX package's own host decoder gives them
+    frames = _frames(3, 16, 24, seed=14)
+    jcfg = JaxConfig(backend="native")
+    segs = jfs.encode_frames_segmented(frames, jcfg,
+                                       max_segment_bits=2 * 16 * 24 * 10)
+    assert [t for _, t in segs] == [2, 1]
+    blob = jfs.write_segmented(segs, 16, 24, jcfg,
+                               source_crc32=zlib.crc32(frames.tobytes()))
+    ours = metalhuffman_tpu_torch.decode_video(blob, "cpu")
+    np.testing.assert_array_equal(ours, metalhuffman_tpu.decode_video(blob, jcfg))
+    np.testing.assert_array_equal(ours, frames)
     # the kernels take 4 symbols per refill: blocks of 2, 4, 8 or 16 only
     # (the JAX package's XLA path also decodes odd sizes)
     for bd in (1, 3, 6, 32):
