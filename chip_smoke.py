@@ -71,9 +71,26 @@ Phases (any failure exits nonzero and prints no result):
    its plain version, bytes and end bits, on F1's segment 1, on F2's
    segment 0 and its flipped mask, and on each of F3's frames, and B2 on
    F1's region selections.
-   Every kernel's launch count is set to 0 just before phases B, C, D, E
-   and F and must match the decodes, encodes and probes each made.
-8. Times, with CUDA events over distinct staged inputs: B1 with and without
+8. Phase G, temporal (MHVT), color (MHTC) and gray16 video at full size,
+   keyframe every 8. G1: 30 panned 2048x1536 photo frames as MHVT;
+   ``decode_video`` (B1, the group fold on the card, one fetch) equals the
+   frames and the numpy ``temporal_decode`` of the fetched residuals. G2:
+   the same frames and 30 frames of 768x1366 (a width no multiple of 8)
+   with motion compensation, equal to the frames and to
+   ``temporal_decode_mc``. G3: 30x1080x1920x3 sub-green temporal frames
+   and a 4-channel MHTC video: ``decode_color_video``, a frame and a
+   checked 512x512 region. G4: 30x2048x1536 u16 depth-like frames with
+   motion compensation (the lo-to-hi carry), a gray16 image and a gray16
+   video. G5, on G1 and G2: ``decode_temporal_range`` 5-13 (across a
+   keyframe), ``decode_temporal_frame`` 29, ``iter_temporal_video`` in
+   chunks of 10 with its CRC chain, a checked 512x512 region, a flipped
+   bit inside the region (raises) and outside (passes), and a wrapper with
+   a changed keyint (raises). G6: F1's 150 frames as MHVT over an MHV2.
+   Then B1 against its plain version on G2's 768x1366 residuals and G3's
+   color planes, B2 on G1's region selection.
+   Every kernel's launch count is set to 0 just before phases B, C, D, E,
+   F and G and must match the decodes, encodes and probes each made.
+9. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -90,7 +107,11 @@ Phases (any failure exits nonzero and prints no result):
    the S3 kernels; phase F's: the MHV2 decode of F1 whole and each segment
    alone (host clock; staging, B1 and fetch apart), the host build of each
    of F3's lookup tables, and F3's MHTS decode (a launch per frame) against
-   one MHTV launch of the same 30 frames.
+   one MHTV launch of the same 30 frames; phase G's, for G1-G4: staging,
+   B1, the plane fold, the temporal fold (each fold beside its byte bound),
+   the fetch, the CRC and the whole ``decode_video`` call, the MHTV decode
+   of the same residuals as the yardstick, and the motion-compensated
+   folds' gather-rolls and adds apart.
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``.
@@ -109,6 +130,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import struct
 import sys
 import time
 import traceback
@@ -127,6 +149,12 @@ F1_FRAMES = 150  # phase F1: MHV2 of segments [136, 14] at 2048x1536
 F2_FRAMES = 137  # phase F2: segment 0 runs past 2^31 bits
 F3_FRAMES = 30  # phase F3: the MHTS clip
 F_REGION = (512, 768, 512, 512)  # (y0, x0, rh, rw) of F1's region decode
+G_FRAMES = 30  # phase G: temporal clips of 30 frames, keyframe every 8
+G_KEYINT = 8
+G_SMALL = (768, 1366)  # G2's second size: a width no multiple of 8
+G_COLOR = (1080, 1920)  # G3's color frames
+G_SHORT = 10  # G3's 4-channel MHTC and G4's gray16 video, without temporal
+G_REGION = (512, 768, 512, 512)  # (y0, x0, rh, rw) of G's region decodes
 TIMED_ITERS = 12
 VARIANTS = 4
 RATE_SMALL = 1 << 16  # S3 elements in phase E
@@ -1283,6 +1311,386 @@ def stream_timings(device, card: str, ctx: dict) -> None:
                n3)
 
 
+def depth_frames(h: int, w: int, t: int) -> np.ndarray:
+    """(T, H, W) uint16 depth-like frames: the panned photo frames scaled
+    to 12 bits, plus a slow gradient that does not pan (so motion
+    compensation leaves small residuals that carry from the lo plane into
+    the hi plane)."""
+    grad = (np.arange(h, dtype=np.uint16)[:, None] // 4
+            + np.arange(w, dtype=np.uint16)[None, :] // 2)
+    return photo_frames(h, w, t).astype(np.uint16) * 16 + grad
+
+
+def color_frames(h: int, w: int, t: int, c: int = 3) -> np.ndarray:
+    """(T, H, W, C) uint8: the panned photo frames and C-1 copies shifted
+    by 16 px down and 16 px right per channel (the last of four inverted)."""
+    f = photo_frames(h, w, t)
+    chans = [f] + [np.roll(f, (16 * k, 16 * k), axis=(1, 2))
+                   for k in range(1, min(c, 3))]
+    if c == 4:
+        chans.append(255 - f)
+    return np.stack(chans, axis=-1)
+
+
+def flip_in_blob(blob: bytes, bit: int) -> bytes:
+    """An MHVT blob whose MHTV inner has code bit ``bit`` flipped; the
+    wrapper and both CRCs as they were."""
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models import temporal
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+
+    inner, keyint, crc, mvs, fcrcs, fl = temporal.unwrap(blob)
+    stream, t, h, w, bd, delta = fs.read_shared(inner)
+    inner = fs.write_shared(flip_bit(stream, bit), t, h, w,
+                            CodecConfig(block_dim=bd, delta=delta),
+                            source_crc32=fs.source_crc32(inner))
+    return temporal.wrap(inner, keyint, crc, mvs, fcrcs, fl)
+
+
+def iter_chunks(total: int, keyint: int, chunk: int) -> int:
+    """The chunks ``iter_temporal_video`` makes of ``total`` frames with
+    keyframe groups of ``keyint`` (the first group whole)."""
+    n, base = 0, 0
+    while base < total:
+        end = min(base + chunk, total)
+        if end < total:
+            end = min(keyint - ((keyint - end) // keyint) * keyint, total)
+        n, base = n + 1, end
+    return n
+
+
+def phase_g(device) -> tuple[dict, dict, dict]:
+    """Temporal (MHVT), color (MHTC) and gray16 video at full size (G1-G6);
+    returns (the launches each kernel made, after checking them; the max
+    absolute difference of B1 and B2 from their plain versions on G's
+    inputs, all 0; the blobs for :func:`temporal_timings`)."""
+    import torch
+
+    import metalhuffman_tpu_torch as mt
+    from metalhuffman_tpu_torch.models import color
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models import temporal
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.models.image_codec import stage_selection
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    t, (h, w) = G_FRAMES, FULL[1:]
+    y0, x0, rh, rw = G_REGION
+    k = G_KEYINT
+
+    def encoded(label, fn, *args):
+        t0 = time.perf_counter()
+        blob = fn(*args)
+        describe = (temporal.describe if blob[:4] == b"MHVT"
+                    else color.describe)
+        print(f"phase {label}: {len(blob)} B in "
+              f"{time.perf_counter() - t0:.2f} s ({describe(blob)})")
+        return blob
+
+    size = f"{t}x{h}x{w}"
+    g1 = photo_frames(h, w, t)
+    blob1 = encoded(f"G1 gray MHVT {size}", mt.encode_video, g1,
+                    CodecConfig(temporal=True, keyint=k, frame_crcs=True))
+    blob2 = encoded(f"G2 MC MHVT {size}", mt.encode_video, g1,
+                    CodecConfig(temporal=True, motion=True, keyint=k,
+                                frame_crcs=True))
+    g2s = photo_frames(*G_SMALL, t)
+    blob2s = encoded(f"G2 MC MHVT {t}x{G_SMALL[0]}x{G_SMALL[1]}",
+                     mt.encode_video, g2s,
+                     CodecConfig(temporal=True, motion=True, keyint=k))
+    mvs2 = temporal.unwrap(blob2)[3]
+    check((mvs2[1:] != 0).any(), "G2: no motion vector found")
+    g3 = color_frames(*G_COLOR, t)
+    blob3 = encoded(f"G3 sub-green MHVT {t}x{G_COLOR[0]}x{G_COLOR[1]}x3",
+                    temporal.encode_temporal_color_video, g3,
+                    CodecConfig(temporal=True, keyint=k), color.CS_SUBGREEN)
+    g3c = color_frames(*G_COLOR, G_SHORT, 4)
+    blob3c = encoded(f"G3 MHTC {G_SHORT}x{G_COLOR[0]}x{G_COLOR[1]}x4",
+                     mt.encode_color_video, g3c)
+    g4 = depth_frames(h, w, t)
+    blob4 = encoded(f"G4 u16 MC MHVT {size}",
+                    temporal.encode_temporal_gray16_video, g4,
+                    CodecConfig(temporal=True, motion=True, keyint=k))
+    blob4i = encoded(f"G4 gray16 image {h}x{w}",
+                     color.encode_gray16_to_bytes, g4[0])
+    blob4v = encoded(f"G4 gray16 video {G_SHORT}x{h}x{w}",
+                     color.encode_gray16_to_bytes, g4[:G_SHORT])
+    f6 = photo_frames(h, w, F1_FRAMES)
+    blob6 = encoded(f"G6 MHVT over MHV2 {F1_FRAMES}x{h}x{w}",
+                    mt.encode_video, f6, CodecConfig(temporal=True, keyint=k))
+    check(temporal.unwrap(blob6)[0][:4] == b"MHV2",
+          "G6: the inner is not segmented")
+    segs6 = [ft for _, ft in fs.read_segmented(temporal.unwrap(blob6)[0])[0]]
+    # G5: a bit inside the region of G1's frame 10 (block row 96, columns
+    # 96-159) whose flip the end-bit check flags, one outside (column 162)
+    s1 = fs.read_shared(temporal.unwrap(blob1)[0])[0]
+    per, bw = (h // 8) * (w // 8), w // 8
+    row = 10 * per + (y0 + rh // 2) // 8 * bw
+    bit_in, block_in = seek_flip(s1, row + x0 // 8, row + (x0 + rw) // 8, 5,
+                                 CodecConfig())
+    offs = s1.block_offsets.astype(np.int64)
+    bit_out = int(offs[row + (x0 + rw) // 8 + 2]) + 3
+    keyed = blob1[:4] + struct.pack("<H", k - 1) + blob1[6:]
+    expected = expect()
+
+    reset_launches()
+
+    def equal(got, want, what):
+        check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"{what}: differs from the source")
+
+    got = mt.decode_video(blob1, device)
+    equal(got, g1, "G1 decode_video")
+    res = fs.decode_container_device(temporal.unwrap(blob1)[0],
+                                     device=device).cpu().numpy()
+    equal(got, temporal.temporal_decode(res, k), "G1 numpy temporal_decode")
+    expected["decode_images"] += 2
+    print("phase G1 ok: decode_video of the MHVT (B1, the group fold on the "
+          "card, one fetch, outer CRC and FCRC) == the frames == numpy "
+          "temporal_decode of the fetched residuals")
+    for blob, frames, name in ((blob2, g1, size),
+                               (blob2s, g2s, f"{t}x{G_SMALL[0]}x{G_SMALL[1]}")):
+        inner, _k, _c, mvs, _f, _fl = temporal.unwrap(blob)
+        got = mt.decode_video(blob, device)
+        equal(got, frames, f"G2 decode_video {name}")
+        res = fs.decode_container_device(inner, device=device).cpu().numpy()
+        equal(got, temporal.temporal_decode_mc(res, k, mvs),
+              f"G2 numpy temporal_decode_mc {name}")
+        expected["decode_images"] += 2
+        print(f"phase G2 ok: decode_video of the MC MHVT {name} (vectors "
+              f"{sorted({tuple(v) for v in mvs.tolist()})}) == the frames == "
+              "numpy temporal_decode_mc of the fetched residuals")
+    equal(mt.decode_color_video(blob3, device), g3, "G3 decode_color_video")
+    equal(temporal.decode_temporal_frame(blob3, 13, device), g3[13],
+          "G3 decode_temporal_frame 13")
+    equal(temporal.decode_temporal_video_region(blob3, 5, 13, y0, x0, rh, rw,
+                                                True, device=device),
+          g3[5:13, y0:y0 + rh, x0:x0 + rw], "G3 region")
+    expected["decode_images"] += 2
+    expected["decode_blocks"] += 1
+    equal(mt.decode_color_video(blob3c, device), g3c, "G3 4-channel MHTC")
+    equal(color.decode_color_frame(blob3c, 7, device), g3c[7],
+          "G3 4-channel decode_color_frame 7")
+    equal(color.decode_color_video_region(blob3c, 2, 9, y0, x0, rh, rw, True,
+                                          device=device),
+          g3c[2:9, y0:y0 + rh, x0:x0 + rw], "G3 4-channel region")
+    expected["decode_images"] += 2
+    expected["decode_blocks"] += 1
+    print("phase G3 ok: sub-green MHVT (decode_color_video, "
+          f"decode_temporal_frame 13, a checked {rh}x{rw} region over frames "
+          "5-12) and 4-channel MHTC (decode_color_video, decode_color_frame "
+          f"7, a checked {rh}x{rw} region over frames 2-8) == the frames")
+    equal(mt.decode_video(blob4, device), g4, "G4 u16 MC MHVT")
+    equal(color.decode_gray16_from_bytes(blob4i, device), g4[0],
+          "G4 gray16 image")
+    equal(color.decode_gray16_from_bytes(blob4v, device), g4[:G_SHORT],
+          "G4 gray16 video")
+    equal(color.decode_color_frame(blob4v, 3, device), g4[3],
+          "G4 gray16 frame 3")
+    expected["decode_images"] += 4
+    print("phase G4 ok: the u16 MC MHVT (the lo-to-hi carry), a gray16 "
+          "image, a gray16 video and its frame 3 == the frames")
+
+    for blob, name, mc in ((blob1, "G1", False), (blob2, "G2", True)):
+        equal(temporal.decode_temporal_range(blob, 5, 14, device), g1[5:14],
+              f"G5 {name} decode_temporal_range 5-13")
+        equal(temporal.decode_temporal_frame(blob, t - 1, device), g1[t - 1],
+              f"G5 {name} decode_temporal_frame {t - 1}")
+        chunks = list(temporal.iter_temporal_video(blob, device,
+                                                   chunk_frames=10))
+        check([b for b, _ in chunks] == [0, 16][: len(chunks)],
+              f"G5 {name} iter chunks at {[b for b, _ in chunks]}")
+        equal(np.concatenate([c for _, c in chunks]), g1,
+              f"G5 {name} iter_temporal_video")
+        equal(temporal.decode_temporal_video_region(
+            blob, 9, 12, y0, x0, rh, rw, True, device=device),
+            g1[9:12, y0:y0 + rh, x0:x0 + rw], f"G5 {name} checked region")
+        # the range, the frame, the chunks; an MC region is a range
+        expected["decode_images"] += 2 + iter_chunks(t, k, 10) + int(mc)
+        expected["decode_blocks"] += 0 if mc else 1
+    try:
+        temporal.decode_temporal_video_region(
+            flip_in_blob(blob1, bit_in), 9, 12, y0, x0, rh, rw, True,
+            device=device)
+    except ValueError as e:
+        check("integrity" in str(e), f"G5 inside flip: {e}")
+        print(f"phase G5 ok: a flipped bit inside the region (bit {bit_in}, "
+              f"block {block_in}) raises: {e}")
+    else:
+        raise PhaseError("G5: a flip inside the region passed the check")
+    equal(temporal.decode_temporal_video_region(
+        flip_in_blob(blob1, bit_out), 9, 12, y0, x0, rh, rw, True,
+        device=device), g1[9:12, y0:y0 + rh, x0:x0 + rw], "G5 outside flip")
+    expected["decode_blocks"] += 2
+    try:
+        mt.decode_video(keyed, device)
+    except ValueError as e:
+        check("wrapper header" in str(e), f"G5 changed keyint: {e}")
+        print(f"phase G5 ok: keyint {k} rewritten as {k - 1} raises: {e}")
+    else:
+        raise PhaseError("G5: a changed keyint decoded")
+    expected["decode_images"] += 2  # the decode and the localizing decode
+    print("phase G5 ok: G1 and G2 decode_temporal_range 5-13, "
+          f"decode_temporal_frame {t - 1}, iter_temporal_video(chunk_frames="
+          f"10) with its CRC chain, a checked {rh}x{rw} region over frames "
+          "9-11:"
+          " all equal to the frames; a flip outside the region passes")
+
+    got = mt.decode_video(blob6, device)
+    equal(got, f6, "G6 MHVT over MHV2")
+    expected["decode_images"] += len(segs6)
+    del got
+    print(f"phase G6 ok: decode_video of the MHVT over an MHV2 of segments "
+          f"{segs6} == the {F1_FRAMES} frames")
+    counts = read_launches()
+    check(counts == expected,
+          f"phase G: kernel launches {counts}, expected {expected}")
+    print(f"phase G launches: {counts}")
+
+    # the kernels against their plain versions on G's inputs (not counted)
+    worst = {"decode_images": 0, "decode_blocks": 0}
+    for name, blob in (("G2 small residuals", blob2s),
+                       ("G3 color planes", blob3)):
+        planes = temporal._plane_inner(temporal.unwrap(blob)[0])[0]
+        stream, ft, ph, pw, _bd, _d = fs.read_shared(planes)
+        prep = fs.prepare_shared(stream, ft, ph, pw, device=device)
+        err = b1_against_plain(prep, CodecConfig(), False)
+        worst["decode_images"] = max(worst["decode_images"], err)
+        check(err == 0, f"{name}: B1 differs from plain by {err}")
+        del prep
+    frame_sel = (np.arange(y0 // 8, (y0 + rh) // 8)[:, None] * bw
+                 + np.arange(x0 // 8, (x0 + rw) // 8)[None, :]).ravel()
+    sel = (frame_sel[None, :] + per * np.arange(8, 12)[:, None]).ravel()
+    staged, table = stage_selection(s1, sel, device=device)
+    got = decode_cuda.decode_blocks(*staged, num_steps=64, delta=True,
+                                    emit_end=True, table=table)
+    want = decode_cuda.decode_blocks_plain(*staged, num_steps=64, delta=True,
+                                           emit_end=True)
+    err = max(int((got[0].int() - want[0].int()).abs().max()),
+              int((got[1].long() - want[1].long()).abs().max()))
+    worst["decode_blocks"] = err
+    check(err == 0, f"G1 region selection: B2 differs from plain by {err}")
+    torch.cuda.synchronize()
+    print(f"phase G ok: B1 == plain on G2's {G_SMALL[0]}x{G_SMALL[1]} "
+          f"residuals and G3's {3 * t} color planes; B2 == plain on G1's "
+          "region selection (bytes and end bits)")
+    return counts, worst, {"G1": blob1, "G2": blob2,
+                           f"G2 {G_SMALL[0]}x{G_SMALL[1]}": blob2s,
+                           "G3": blob3, "G4": blob4}
+
+
+def mc_split(res, keyint: int, mvs) -> tuple[float, float]:
+    """One in-place motion-compensated fold of ``res`` as
+    ``temporal_fold_mc`` runs it, with CUDA events around each gather-roll
+    and each add -> (roll ms, add ms), summed."""
+    import torch
+
+    from metalhuffman_tpu_torch.models import temporal
+
+    t, hh, ww = res.shape[:3]
+    x = res.view(torch.int16) if res.dtype == torch.uint16 else res
+    mv = np.asarray(mvs).astype(np.int64) % np.array([hh, ww])
+    mv_dev = torch.from_numpy(mv).to(res.device)
+    marks = {"roll": [], "add": []}
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    for start, g, n in temporal._groups(t, keyint, None):
+        grp = x[start : start + g * n].view((g, n) + tuple(x.shape[1:]))
+        mvg = mv[start : start + g * n].reshape(g, n, 2)
+        dvg = mv_dev[start : start + g * n].view(g, n, 2)
+        for s in range(1, n):
+            if mvg[:, s].any():
+                e0 = event()
+                pred = temporal.roll_groups(grp[:, s - 1], dvg[:, s, 0],
+                                            dvg[:, s, 1])
+                e1 = event()
+                marks["roll"].append((e0, e1))
+            else:
+                pred = grp[:, s - 1]
+            e1 = event()
+            grp[:, s].add_(pred)
+            marks["add"].append((e1, event()))
+    torch.cuda.synchronize()
+    return tuple(sum(a.elapsed_time(b) for a, b in marks[k])
+                 for k in ("roll", "add"))
+
+
+def temporal_timings(device, card: str, blobs: dict) -> None:
+    """Phase G's times, for G1-G4: staging, B1, the plane fold, the
+    temporal fold (CUDA events, in place on the decoded residuals; each
+    fold beside its byte bound, the stack read once and written once), the
+    fetch, the CRC and the whole ``decode_video`` call (host clock); the
+    MHTV decode of the same residuals (``decode_video`` of the inner, with
+    its fetch and CRC) as the yardstick; for the MC folds the gather-rolls
+    and the adds apart."""
+    import torch
+
+    import metalhuffman_tpu_torch as mt
+    from metalhuffman_tpu_torch.models import color
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models import temporal
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+
+    for label, blob in blobs.items():
+        inner, k, _crc, mvs, _fc, fl = temporal.unwrap(blob)
+        planes_blob, cinfo = temporal._plane_inner(inner)
+        stream, n, h, w, bd, delta = fs.read_shared(planes_blob)
+        cfg = CodecConfig(block_dim=bd, delta=delta)
+        nb = n * h * w
+        host_timed(f"{label} staging (prepare_shared, {n} planes {h}x{w})",
+                   lambda s: fs.prepare_shared(s, n, h, w, cfg,
+                                               device=device),
+                   [stream], card, nb)
+        prep = fs.prepare_shared(stream, n, h, w, cfg, device=device)
+        b1_ms = timed(f"{label} B1 (decode_shared_step, cropped)",
+                      lambda p: fs.decode_shared_step(p, cfg), [prep], card,
+                      nb)
+        planes = fs.decode_shared_step(prep, cfg)
+        del prep
+        res = planes
+        if cinfo is not None:
+            timed(f"{label} plane fold (fold_video_planes_torch)",
+                  lambda x: color.fold_video_planes_torch(x, *cinfo),
+                  [planes], card, nb, "folded")
+            roofline(f"{label} plane fold", 2 * nb, 0)
+            res = color.fold_video_planes_torch(planes, *cinfo)
+        if mvs is None:
+            fold_ms = timed(f"{label} group fold (temporal_fold, keyint {k})",
+                            lambda x: temporal.temporal_fold(x, k, fl), [res],
+                            card, nb, "folded")
+        else:
+            fold_ms = timed(f"{label} MC fold (temporal_fold_mc, keyint {k})",
+                            lambda x: temporal.temporal_fold_mc(
+                                x, k, mvs, fl), [res], card, nb, "folded")
+            splits = [mc_split(res, k, mvs) for _ in range(HOST_ITERS)]
+            rolls = sorted(r for r, _ in splits)
+            adds = sorted(a for _, a in splits)
+            mid = HOST_ITERS // 2
+            print(f"time {label} MC fold split: gather-rolls median "
+                  f"{rolls[mid]:.4f} ms, adds median {adds[mid]:.4f} ms over "
+                  f"{HOST_ITERS} folds (CUDA events around each); the fold "
+                  f"{fold_ms / b1_ms:.3f}x B1 on the same frames, on {card}")
+        bms, _by = roofline(f"{label} temporal fold", 2 * nb, 0)
+        print(f"{label} temporal fold: {100 * bms / fold_ms:.1f} % of its "
+              "byte bound")
+        host_timed(f"{label} fetch ({nb} B)", lambda x: x.cpu().numpy(),
+                   [res], card, nb)
+        frames = res.cpu().numpy()
+        host_timed(f"{label} CRC-32 of the frames", temporal._crc, [frames],
+                   card, nb)
+        del planes, res, frames
+        torch.cuda.empty_cache()
+        host_timed(f"{label} decode_video, whole call",
+                   lambda b: mt.decode_video(b, device), [blob], card, nb)
+        host_timed(f"{label} yardstick: decode_video of the residual MHTV",
+                   lambda b: mt.decode_video(b, device), [planes_blob], card,
+                   nb)
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
           unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
@@ -2014,6 +2422,9 @@ def main(argv: list[str]) -> int:
     counts, f_errs, f_ctx = phase_f(device)
     for name, count in counts.items():
         launches[name] += count
+    counts, g_errs, g_blobs = phase_g(device)
+    for name, count in counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -2021,8 +2432,10 @@ def main(argv: list[str]) -> int:
     entries.update(probe_timings(device, card))
     stream_timings(device, card, f_ctx)
     del f_ctx
-    max_err = max(max_err, f_errs["decode_images"])
-    b2_err = max(b2_err, f_errs["decode_blocks"])
+    temporal_timings(device, card, g_blobs)
+    del g_blobs
+    max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"])
+    b2_err = max(b2_err, f_errs["decode_blocks"], g_errs["decode_blocks"])
     errs.update(decode_images=max_err, decode_blocks=b2_err,
                 encode_stream=stream_err, encode_rows=b3_err)
     for name, err in errs.items():

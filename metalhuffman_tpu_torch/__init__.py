@@ -18,6 +18,11 @@ use). It imports no JAX and nothing of the JAX package.
   checked decode, and random access (``decode_range``, ``decode_frame``,
   ``decode_video_region``).
 - ``models.image_codec``: the single-image codec (MHT1), region decode.
+- ``models.color``: color and 16-bit grayscale images and videos as planes
+  over the video containers (MHTC), and the plane fold on the device.
+- ``models.temporal``: temporal video (MHVT): inter-frame residuals, with
+  or without global motion compensation, folded on the device after the
+  decode.
 
 Every entry point decodes (and the hybrid encoder packs) on the card unless
 the caller passes ``device="cpu"``.
@@ -42,13 +47,53 @@ def decode_image(blob: bytes, device="cuda"):
     return ImageCodec().decode(blob, device=device)
 
 
+def encode_color_image(img, config=None) -> bytes:
+    """(H, W, C) uint8 image -> MHTC color container bytes (host encode)."""
+    from .models import color
+
+    return color.encode_color_to_bytes(img, config)
+
+
+def decode_color_image(blob: bytes, device="cuda"):
+    """MHTC color container (or a legacy bare MHTV of planes) -> (H, W, C)
+    uint8, decoded on ``device`` and CRC-checked."""
+    from .models import color
+
+    return color.decode_color_from_bytes(blob, device)
+
+
+def encode_color_video(frames, config=None) -> bytes:
+    """(T, H, W, C) uint8 frames -> MHTC color video container bytes, or
+    with ``config.temporal`` inter-frame residuals in an MHVT wrapper."""
+    from .models import color
+
+    if config is not None and config.temporal:
+        from .models import temporal
+
+        return temporal.encode_temporal_color_video(frames, config)
+    return color.encode_color_video_to_bytes(frames, config)
+
+
+def decode_color_video(blob: bytes, device="cuda"):
+    """MHTC (or temporal MHVT) color video -> (T, H, W, C) uint8, decoded on
+    ``device`` and CRC-checked."""
+    from .models import color
+
+    if blob[:4] == b"MHVT":
+        from .models import temporal
+
+        return temporal.decode_temporal_video(blob, device)
+    return color.decode_color_video_from_bytes(blob, device)
+
+
 def encode_video(frames, config=None) -> bytes:
     """(T, H, W) uint8 frames -> MHTV container bytes (host encode), or
     segmented MHV2 when the stream could pass u32 block offsets.
 
     Records the CRC-32 of the source frames, and with ``config.frame_crcs``
-    a per-frame CRC table for random access. ``config.temporal`` (MHVT) is
-    not ported yet.
+    a per-frame CRC table for random access. With ``config.temporal`` the
+    frames become inter-frame residuals in an MHVT wrapper (keyframe every
+    ``config.keyint``, motion compensation under ``config.motion``).
     """
     import zlib
 
@@ -56,11 +101,11 @@ def encode_video(frames, config=None) -> bytes:
 
     from .models import frame_stream
 
-    if config is not None and config.temporal:
-        raise NotImplementedError(
-            "temporal MHVT containers are still to port "
-            "(ROADMAP.md queue A item 8)")
     frames_arr = np.asarray(frames)
+    if config is not None and config.temporal:
+        from .models import temporal
+
+        return temporal.encode_temporal_video(frames_arr, config)
     t, h, w = frames_arr.shape
     crc = zlib.crc32(np.ascontiguousarray(frames_arr).tobytes())
     fcrcs = None
@@ -75,21 +120,23 @@ def encode_video(frames, config=None) -> bytes:
 
 
 def decode_video(blob: bytes, device="cuda"):
-    """MHTV or MHV2 container bytes -> (T, H, W) uint8 numpy frames, decoded
-    on ``device`` and checked against the recorded source CRC-32.
+    """MHTV, MHV2 or MHVT container bytes -> numpy frames, decoded on
+    ``device`` and checked against the recorded source CRC-32.
 
     The container fixes block_dim and precoder; ``device`` picks the decode
     route (the CUDA kernels or, on the CPU, their plain versions). MHV2
-    segments decode two in flight. Temporal (MHVT) containers are not
-    ported yet.
+    segments decode two in flight. MHTV and MHV2 give (T, H, W) uint8; an
+    MHVT gives the reconstructed true frames, (T, H, W) uint8, (T, H, W, C)
+    uint8 or (T, H, W) uint16 after its inner container, folded on
+    ``device`` and fetched once.
     """
     from .models import frame_stream
     from .models.config import CodecConfig
 
     if blob[:4] == b"MHVT":
-        raise NotImplementedError(
-            "temporal MHVT containers are still to port "
-            "(ROADMAP.md queue A item 8)")
+        from .models import temporal
+
+        return temporal.decode_temporal_video(blob, device)
     if blob[:4] == frame_stream.SEGMENTED_MAGIC:
         segs, _t, h, w, bd, delta = frame_stream.read_segmented(blob)
         cfg = CodecConfig(block_dim=bd, delta=delta,

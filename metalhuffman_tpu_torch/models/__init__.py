@@ -1,1 +1,2 @@
-"""End-to-end codec pipelines of the port (shared-table video decode)."""
+"""End-to-end codec pipelines of the port: video containers, the image
+codec, color and 16-bit planes, temporal video."""

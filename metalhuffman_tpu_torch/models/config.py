@@ -26,9 +26,14 @@ class CodecConfig:
     #: FCRC extension trailer), so random access (``decode_range``) verifies
     #: exactly the frames it returns; 4 bytes per frame
     frame_crcs: bool = False
-    #: inter-frame residuals in an MHVT wrapper: not ported yet (ROADMAP.md
-    #: queue A item 8), so ``encode_video`` refuses it
+    #: inter-frame residuals in an MHVT wrapper (``models.temporal``): frames
+    #: become wrapping residuals against the previous frame, with a literal
+    #: keyframe every ``keyint``; video encodes only, decode reads the magic
     temporal: bool = False
+    keyint: int = 8  #: keyframe interval (bounds random-access decode work)
+    #: with temporal: per-frame global motion compensation, the predictor
+    #: being the previous frame circularly shifted by an integer (dy, dx)
+    motion: bool = False
 
     def __post_init__(self):
         # the kernels decode 4 symbols per refill, as the TPU kernel does

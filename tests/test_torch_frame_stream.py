@@ -222,8 +222,12 @@ def test_port_roundtrip_through_its_own_writer():
 
 
 def test_unported_containers_and_block_dims_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        metalhuffman_tpu_torch.decode_video(b"MHVT" + bytes(32), "cpu")
+    # MHVT is ported: a wrapper with keyint 0 raises the JAX package's error
+    for decode in (lambda b: metalhuffman_tpu_torch.decode_video(b, "cpu"),
+                   lambda b: metalhuffman_tpu.decode_video(
+                       b, JaxConfig(backend="native"))):
+        with pytest.raises(ValueError, match="keyint 0"):
+            decode(b"MHVT" + bytes(32))
     # MHV2 is ported: a segmented blob of the JAX package decodes to its
     # frames, as the JAX package's own host decoder gives them
     frames = _frames(3, 16, 24, seed=14)

@@ -52,6 +52,21 @@ hybrid = encode_cuda.encode_symbols_hybrid(payload, device="cpu")
 host = native.encode_symbols(payload)
 assert (hybrid.code_bytes == host.code_bytes).all()
 assert (hybrid.block_offsets == host.block_offsets).all()
+# temporal with motion, a color video and a gray16 video
+pan = np.stack([np.roll(frames[0], (i, -2 * i), (0, 1)) for i in range(5)])
+mhvt = metalhuffman_tpu_torch.encode_video(
+    pan, CodecConfig(temporal=True, motion=True, keyint=3))
+assert mhvt[:4] == b"MHVT"
+assert (metalhuffman_tpu_torch.decode_video(mhvt, "cpu") == pan).all()
+rgb = np.stack([pan, pan // 2, 255 - pan], axis=-1)
+mhtc = metalhuffman_tpu_torch.encode_color_video(rgb)
+assert mhtc[:4] == b"MHTC"
+assert (metalhuffman_tpu_torch.decode_color_video(mhtc, "cpu") == rgb).all()
+from metalhuffman_tpu_torch.models import color
+depth = pan.astype(np.uint16) * 16 + np.arange(24, dtype=np.uint16) * 99
+g16 = color.encode_gray16_to_bytes(depth)
+got = color.decode_gray16_from_bytes(g16, "cpu")
+assert got.dtype == np.uint16 and (got == depth).all()
 assert not any(m == "jax" or m.startswith(("jax.", "metalhuffman_tpu."))
                or m == "metalhuffman_tpu" for m in sys.modules
                if sys.modules[m] is not None)

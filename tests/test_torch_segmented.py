@@ -324,9 +324,15 @@ def test_encode_video_matches_jax(monkeypatch, segmented, fcrc):
 
 
 def test_encode_video_temporal_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        metalhuffman_tpu_torch.encode_video(_frames(2),
-                                            CodecConfig(temporal=True))
+    # ported since: the temporal branch writes the JAX package's MHVT bytes
+    frames = _frames(3)
+    ours = metalhuffman_tpu_torch.encode_video(
+        frames, CodecConfig(temporal=True, keyint=2))
+    assert ours[:4] == b"MHVT"
+    assert ours == metalhuffman_tpu.encode_video(
+        frames, _native(temporal=True, keyint=2))
+    np.testing.assert_array_equal(
+        metalhuffman_tpu_torch.decode_video(ours, "cpu"), frames)
 
 
 @pytest.mark.parametrize("name", ["delta", "zero_init", "4x4"])
