@@ -88,9 +88,27 @@ Phases (any failure exits nonzero and prints no result):
    a changed keyint (raises). G6: F1's 150 frames as MHVT over an MHV2.
    Then B1 against its plain version on G2's 768x1366 residuals and G3's
    color planes, B2 on G1's region selection.
+9. Phase H, multi-GPU decode and encode (``metalhuffman_tpu_torch.parallel``)
+   through a one-rank NCCL group on the card (the machine holds one GPU),
+   at 30x2048x1536: ``decode_shared_sharded`` + ``gather_shared`` (B1),
+   ``decode_blocks_sharded`` at 16x16 (B2), ``decode_batch_sharded`` of
+   F3's 30-table MHTS clip (B2), each equal to the frames and to the
+   single-device decode; ``encode_symbols_sharded`` (which
+   ``encode_symbols_multihost`` names too) on the synthetic delta payload,
+   alone and with a 17-symbol tail, equal to the host encoder and to
+   ``encode_symbols_hybrid``; ``encode_rows_sharded``'s totals. Then the
+   seams: the local steps of worlds 3 and 4, rank by rank in this process
+   with no collective, on 3 photo frames (B1 at 8x8, B2 at 16x16), 3 frames
+   of the MHTS clip (B2) and two payloads of odd-width codes
+   (``encode_stream``), each rank's output equal to its plain version and
+   the ranks, assembled by the port's gather and splice code, equal to the
+   source; the bit phases of the encode seams are printed. Then its times:
+   each sharded call against its single-device call, the 94.4 MB
+   all-gather, the cross-check and the splice apart; one ``phase H`` JSON
+   line before the last two lines holds them with the launch counts.
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
-   F and G and must match the decodes, encodes and probes each made.
-9. Times, with CUDA events over distinct staged inputs: B1 with and without
+   F, G and H and must match the decodes, encodes and probes each made.
+10. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -114,7 +132,8 @@ Phases (any failure exits nonzero and prints no result):
    folds' gather-rolls and adds apart.
 
 The last two lines are a JSON object describing the kernels and the result
-line ``{"ok": true, "device": {...}}``.
+line ``{"ok": true, "device": {...}}``; the ``phase H`` line comes before
+them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -158,6 +177,12 @@ G_REGION = (512, 768, 512, 512)  # (y0, x0, rh, rw) of G's region decodes
 TIMED_ITERS = 12
 VARIANTS = 4
 RATE_SMALL = 1 << 16  # S3 elements in phase E
+H_WORLDS = (3, 4)  # phase H: worlds whose local steps run rank by rank
+H_DEPTH = 3  # frames of phase H's seam inputs
+# phase H's odd-width payloads: their encode seams in worlds 3 and 4 reach
+# every bit phase (base & 7) between them
+H_SKEWED = (1 << 20) + 5
+H_SEEDS = (9, 10, 11)
 KERNELS = {
     "decode_images": {
         "route": "cuda",
@@ -1691,6 +1716,322 @@ def temporal_timings(device, card: str, blobs: dict) -> None:
                    nb)
 
 
+def free_port() -> int:
+    """A TCP port of this host that no one listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def skewed(n: int, seed: int) -> np.ndarray:
+    """Symbols of 40 values at frequencies 0.82^i: odd-width codes, so the
+    ranks' runs meet at any bit phase (the JAX package's sharded encoder
+    tests' set)."""
+    p = 0.82 ** np.arange(40)
+    return np.random.default_rng(seed).choice(
+        np.arange(40), size=n, p=p / p.sum()).astype(np.uint8)
+
+
+def max_err(a, b) -> int:
+    """Largest absolute difference of two equal-shaped tensors."""
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def h_seams(device, frames3, streams3) -> tuple[dict, set]:
+    """Phase H's seams: the local steps of worlds H_WORLDS, each rank in
+    turn with no collective, assembled by the port's gather and splice
+    code; every rank's kernel output held to its plain version, every
+    assembly to the source. Returns (max absolute difference from the
+    plain versions, by kernel; the bit phases the encode seams landed on)."""
+    import torch
+
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.core import blocks
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    from metalhuffman_tpu_torch.parallel import shard_decode, shard_encode
+
+    _t, h, w = FULL
+    t = H_DEPTH
+    frames = photo_frames(h, w, t)
+    worst = dict.fromkeys(("decode_images", "decode_blocks", "encode_stream"),
+                          0)
+    phases = set()
+    payloads = [("photo delta + 37-symbol tail", np.concatenate(
+        [delta_payload(frames), delta_payload(frames[:1])[:37]]))] + [
+        (f"skewed set, seed {seed}", skewed(H_SKEWED, seed))
+        for seed in H_SEEDS]
+    for world in H_WORLDS:
+        for cfg in (CodecConfig(), CodecConfig(block_dim=16)):
+            kernel = "decode_images" if cfg.block_dim == 8 else "decode_blocks"
+            stream = fs.encode_frames_shared(frames, cfg)
+            units = t * (h // 8) if cfg.block_dim == 8 else \
+                t * (h // 16) * (w // 16)
+            per_unit = w // 8 if cfg.block_dim == 8 else 1
+            parts = []
+            for r in range(world):
+                local, (lo, hi) = fs.decode_shared_local(
+                    stream, t, h, w, cfg, rank=r, world=world, device=device)
+                ins = shard_decode.shard_stream_inputs(
+                    stream, lo * per_unit, hi * per_unit, cfg.block_size,
+                    device=device)[:5]
+                plain = (decode_cuda.decode_images_plain(
+                    *ins, num_frames=1, bh=hi - lo, bw=per_unit,
+                    delta=True)[0] if cfg.block_dim == 8 else
+                    decode_cuda.decode_blocks_plain(
+                        *ins, num_steps=cfg.block_size, delta=True))
+                worst[kernel] = max(worst[kernel], max_err(local, plain))
+                parts.append(local)
+            got = fs.frames_from_shards(parts, t, h, w, cfg).cpu().numpy()
+            check(np.array_equal(got, frames) and worst[kernel] == 0,
+                  f"phase H seams, world {world}, {cfg.block_dim}x"
+                  f"{cfg.block_dim}: {int((got != frames).sum())} bytes "
+                  f"differ, {worst[kernel]} from plain")
+        prep = fs.prepare_batch(streams3[:t], h, w, device=device)
+        # a (1, world) grid: every rank a block range of every frame
+        parts = [fs.decode_batch_local(prep, seq=(r, world))
+                 for r in range(world)]
+        blk = shard_decode.assemble_grid(parts, [list(range(world))])
+        nb = (h // 8) * (w // 8)
+        for i, f in enumerate(prep.frames):
+            b0 = 0
+            for r in range(world):
+                lo, hi = shard_decode.block_range(r, world, nb)
+                plain = decode_cuda.decode_blocks_plain(
+                    f.words, f.offsets[lo:hi], f.symbols, f.bounds, f.adj,
+                    num_steps=64, delta=True)
+                worst["decode_blocks"] = max(worst["decode_blocks"], max_err(
+                    parts[r][i, : hi - lo], plain))
+        got = blocks.blocks_to_image_torch(blk[:, :nb], h, w).cpu().numpy()
+        check(np.array_equal(got, frames3[:t]) and worst["decode_blocks"] == 0,
+              f"phase H seams, world {world}: decode_batch_local differs")
+        for name, data in payloads:
+            widths, codes = encode_cuda.canonical_table(data)
+            table = torch.from_numpy(encode_cuda.code_table(widths, codes)).to(
+                device)
+            sym = torch.from_numpy(data).to(device)
+            runs, offsets = [], []
+            locs = [shard_encode.encode_stream_local(sym[slice(
+                *shard_encode.symbol_range(r, world, data.size))], table)
+                for r in range(world)]
+            totals = [total for _, _, total in locs]
+            bases = shard_encode.rank_bases(totals)
+            phases.update(b & 7 for b in bases[1:])
+            for r, ((stream, offs, total), base) in enumerate(zip(locs, bases)):
+                lo, hi = shard_encode.symbol_range(r, world, data.size)
+                p_stream, p_offs, p_total = encode_cuda.encode_stream_plain(
+                    sym[lo:hi], table)
+                worst["encode_stream"] = max(
+                    worst["encode_stream"], max_err(stream, p_stream),
+                    max_err(offs, p_offs), abs(total - p_total))
+                runs.append(shard_encode.place_run(stream, total, base))
+                offsets.append(shard_encode.rebase_offsets(offs, base))
+            got = shard_encode.assemble_stream(runs, totals, offsets,
+                                               data.size, widths)
+            check(same_stream(got, native.encode_symbols(data))
+                  and worst["encode_stream"] == 0,
+                  f"phase H seams, world {world}, {name}: the spliced stream "
+                  "differs from the host encoder's, or a rank's from plain")
+        print(f"phase H ok: world {world}, each rank in turn: B1 (8x8) and "
+              f"B2 (16x16) on {t}x{h}x{w} photo block ranges, B2 on {t} "
+              f"frames of the MHTS clip, encode_stream on {len(payloads)} "
+              "payloads; each == plain and assembled == the source")
+    check(phases == set(range(8)), f"phase H seams: the encode seams "
+          f"reached bit phases {sorted(phases)}, not all 8")
+    return worst, phases
+
+
+def phase_h(device, card: str, frames3, streams3) -> tuple[dict, dict, dict]:
+    """Multi-GPU decode and encode (``metalhuffman_tpu_torch.parallel``)
+    through a one-rank NCCL group at full size, then the seams
+    (:func:`h_seams`) and the times; returns (the launches each kernel
+    made before the times, after checking them; the max absolute
+    difference of each kernel from its plain version; the times)."""
+    import torch
+    import torch.distributed as dist
+
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.core import blocks
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    from metalhuffman_tpu_torch.parallel import mesh, multihost, shard_decode, shard_encode
+
+    t, h, w = FULL
+    t0 = time.perf_counter()
+    rank, world = multihost.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                                       device=device)
+    print(f"phase H: {dist.get_backend()} group of {world} on {device}, "
+          f"rank {rank}, set up in {time.perf_counter() - t0:.3f} s")
+    try:
+        m = mesh.make_mesh(device=device)
+        m2 = mesh.make_mesh_2d(device=device)
+        synth = synthetic(t, h, w)
+        cfg16 = CodecConfig(block_dim=16)
+        stream8 = fs.encode_frames_shared(synth, CodecConfig())
+        stream16 = fs.encode_frames_shared(synth, cfg16)
+        payload = delta_payload(synth)
+        tailed = np.concatenate([payload, payload[:17]])
+        hosts = {n: native.encode_symbols(p)
+                 for n, p in (("payload", payload), ("tailed", tailed))}
+        prep16 = fs.prepare_shared(stream16, t, h, w, cfg16, device=device)
+        args16 = (prep16.words, prep16.offsets, prep16.symbols, prep16.bounds,
+                  prep16.adj)
+        prep3 = fs.prepare_batch(streams3, h, w, device=device)
+        body = torch.from_numpy(payload.reshape(-1, 64)).to(device)
+        widths, codes = encode_cuda.canonical_table(payload)
+        table = torch.from_numpy(encode_cuda.code_table(widths, codes)).to(
+            device)
+        bits = encode_cuda.block_bits(payload.reshape(-1, 64), widths)
+        wmax = int(bits.max()) // 32 + 2
+
+        reset_launches()
+        local, rng = fs.decode_shared_sharded(stream8, t, h, w, m,
+                                              device=device)
+        got = fs.gather_shared(local, t, h, w, m)
+        single = fs.decode_frames_shared(stream8, t, h, w, device=device)
+        check(rng == (0, t * h // 8) and torch.equal(got, single)
+              and np.array_equal(got.cpu().numpy(), synth),
+              "phase H decode_shared_sharded: differs from the frames or "
+              "the single-device decode")
+        out = shard_decode.decode_blocks_sharded(
+            *args16, mesh=m, num_steps=256, table=prep16.table)
+        single = decode_cuda.decode_blocks(*args16, num_steps=256, delta=True,
+                                           table=prep16.table)
+        check(torch.equal(out, single) and np.array_equal(
+            blocks.blocks_to_image_torch(out.view(t, -1, 256), h, w, 16)
+            .cpu().numpy(), synth),
+            "phase H decode_blocks_sharded 16x16: differs")
+        out = fs.decode_batch_sharded(prep3, m2)
+        got = blocks.blocks_to_image_torch(out, h, w)
+        check(torch.equal(got, fs.decode_batch(prep3))
+              and np.array_equal(got.cpu().numpy(), frames3),
+              "phase H decode_batch_sharded: differs from decode_batch or "
+              "the frames")
+        print(f"phase H ok: decode_shared_sharded + gather_shared (B1), "
+              f"decode_blocks_sharded 16x16 (B2), decode_batch_sharded of "
+              f"the {len(streams3)}-table MHTS clip (B2) at {t}x{h}x{w}: "
+              "== the frames and the single-device decodes")
+        for name, data in (("payload", payload), ("tailed", tailed)):
+            hybrid = encode_cuda.encode_symbols_hybrid(data, device=device)
+            got = multihost.encode_symbols_multihost(data, mesh=m,
+                                                     device=device)
+            check(same_stream(got, hosts[name]) and same_stream(got, hybrid),
+                  f"phase H encode_symbols_sharded ({name}): the stream "
+                  "differs from the host encoder's or the hybrid's")
+        rows, totals = shard_encode.encode_rows_sharded(body, table, wmax=wmax,
+                                                        mesh=m)
+        check(totals.tolist() == [int(bits.astype(np.int64).sum())]
+              and torch.equal(rows[:, wmax].cpu(),
+                              torch.from_numpy(bits.view(np.int32))),
+              "phase H encode_rows_sharded: totals differ from the block "
+              "bits")
+        print(f"phase H ok: encode_symbols_sharded (= "
+              f"encode_symbols_multihost) ({payload.size} symbols, and "
+              f"with a 17-symbol tail) == host encoder == "
+              f"encode_symbols_hybrid; encode_rows_sharded "
+              f"totals {totals.tolist()} == the block bits")
+        seams, phases = h_seams(device, frames3, streams3)
+        counts = read_launches()
+        n_seam = sum(H_WORLDS)
+        expected = expect(
+            decode_images=2 + len(streams3) + n_seam,
+            decode_blocks=2 + len(streams3) + n_seam + H_DEPTH * n_seam,
+            encode_stream=4 + (1 + len(H_SEEDS)) * n_seam, encode_rows=1)
+        check(counts == expected,
+              f"phase H: kernel launches {counts}, expected {expected}")
+        print(f"phase H launches: {counts}; encode seams at bit phases "
+              f"{sorted(phases)}")
+        errs = dict(seams, encode_rows=max_err(
+            rows, encode_cuda.encode_rows_plain(body, table, wmax=wmax)))
+        check(errs["encode_rows"] == 0, "phase H: B3's rows differ from plain")
+        times = h_timings(device, card, m, m2, stream8, args16, prep16.table,
+                          prep3, payload)
+    finally:
+        dist.destroy_process_group()
+    return counts, errs, times
+
+
+def h_timings(device, card: str, m, m2, stream8, args16, table16, prep3,
+              payload) -> dict:
+    """Phase H's times: each sharded call against its single-device call,
+    and the gather, the cross-check and the splice apart."""
+    import torch
+
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    from metalhuffman_tpu_torch.parallel import multihost, shard_decode, shard_encode
+
+    t, h, w = FULL
+    size = t * h * w
+
+    def shared_sharded(_):
+        local, _r = fs.decode_shared_sharded(stream8, t, h, w, m,
+                                             device=device)
+        return fs.gather_shared(local, t, h, w, m)
+
+    times = {
+        "decode_shared_sharded+gather_shared": host_timed(
+            "H decode_shared_sharded + gather_shared (stage, B1, gather)",
+            shared_sharded, [0], card, size),
+        "decode_frames_shared": host_timed(
+            "H decode_frames_shared (stage, B1)", lambda _: (
+                fs.decode_frames_shared(stream8, t, h, w, device=device)),
+            [0], card, size),
+        "decode_blocks_sharded 16x16": timed(
+            "H decode_blocks_sharded 16x16 (B2, all-gather)", lambda _: (
+                shard_decode.decode_blocks_sharded(
+                    *args16, mesh=m, num_steps=256, table=table16)),
+            [0], card, size),
+        "decode_blocks 16x16": timed(
+            "H decode_blocks 16x16 (B2)", lambda _: decode_cuda.decode_blocks(
+                *args16, num_steps=256, delta=True, table=table16),
+            [0], card, size),
+        "decode_batch_sharded": timed(
+            "H decode_batch_sharded MHTS (B2 x 30, all-gather)",
+            lambda _: fs.decode_batch_sharded(prep3, m2), [0], card, size),
+        "decode_batch": timed(
+            "H decode_batch MHTS (B1 x 30)", lambda _: fs.decode_batch(prep3),
+            [0], card, size),
+    }
+    for name, fn in (("encode_symbols_sharded",
+                      shard_encode.encode_symbols_sharded),
+                     ("encode_symbols_hybrid",
+                      encode_cuda.encode_symbols_hybrid)):
+        kw = {} if name == "encode_symbols_hybrid" else {"mesh": m}
+        times[name] = host_timed(f"H {name}", lambda x, fn=fn, kw=kw: fn(
+            x, device=device, **kw), [payload], card, payload.size)
+    blk = torch.zeros((size // 64, 64), dtype=torch.uint8, device=device)
+    times["gather_rows 94.4 MB"] = timed(
+        "H gather_rows of the decoded batch (NCCL all_gather, 1 rank)",
+        lambda x: shard_decode.gather_rows(x, x.shape[0]), [blk], card, size)
+    sym = torch.from_numpy(payload).to(device)
+    widths, codes = encode_cuda.canonical_table(payload)
+    wt = torch.from_numpy(widths).to(device, torch.int64)
+    times["cross-check"] = timed(
+        "H cross-check (bincount x widths)", lambda x: (
+            torch.bincount(x, minlength=256) * wt).sum(), [sym], card,
+        payload.size, "symbols")
+    table = torch.from_numpy(encode_cuda.code_table(widths, codes)).to(device)
+    stream, _o, total = encode_cuda.encode_stream(sym, table)
+    code = torch.zeros_like(stream)
+
+    def splice(base):
+        shard_encode.splice_run(code, base,
+                                shard_encode.place_run(stream, total, base))
+
+    times["place_run+splice_run lead 0"] = timed(
+        "H place_run + splice_run, lead 0", splice, [0], card, stream.numel(),
+        "stream")
+    times["place_run+splice_run lead 5"] = timed(
+        "H place_run + splice_run, lead 5", splice, [5], card, stream.numel(),
+        "stream")
+    return times
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
           unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
@@ -2425,6 +2766,10 @@ def main(argv: list[str]) -> int:
     counts, g_errs, g_blobs = phase_g(device)
     for name, count in counts.items():
         launches[name] += count
+    h_counts, h_errs, h_times = phase_h(device, card, f_ctx["f3"],
+                                        f_ctx["streams3"])
+    for name, count in h_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -2434,13 +2779,18 @@ def main(argv: list[str]) -> int:
     del f_ctx
     temporal_timings(device, card, g_blobs)
     del g_blobs
-    max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"])
-    b2_err = max(b2_err, f_errs["decode_blocks"], g_errs["decode_blocks"])
+    max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"],
+                  h_errs["decode_images"])
+    b2_err = max(b2_err, f_errs["decode_blocks"], g_errs["decode_blocks"],
+                 h_errs["decode_blocks"])
     errs.update(decode_images=max_err, decode_blocks=b2_err,
-                encode_stream=stream_err, encode_rows=b3_err)
+                encode_stream=max(stream_err, h_errs["encode_stream"]),
+                encode_rows=max(b3_err, h_errs["encode_rows"]))
     for name, err in errs.items():
         entries[name]["max_abs_err"] = max(err, entries[name]["max_abs_err"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print("phase H " + json.dumps({"card": card, "launches": h_counts,
+                                   "ms": h_times}))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

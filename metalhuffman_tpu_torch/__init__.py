@@ -23,6 +23,10 @@ use). It imports no JAX and nothing of the JAX package.
 - ``models.temporal``: temporal video (MHVT): inter-frame residuals, with
   or without global motion compensation, folded on the device after the
   decode.
+- ``parallel``: multi-GPU decode and encode over ``torch.distributed``
+  (NCCL for CUDA tensors, gloo for CPU tensors): each rank runs the kernels
+  on its contiguous block range, and one gather puts the ranges in stream
+  order.
 
 Every entry point decodes (and the hybrid encoder packs) on the card unless
 the caller passes ``device="cpu"``.

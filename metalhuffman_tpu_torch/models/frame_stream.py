@@ -22,6 +22,9 @@ explicit device and decodes all its frames in one launch:
   ``read_stream``, ``iter_stream_frames``); ``decode_batch`` launches the
   kernel once per frame, each with its frame's lookup table, into one
   output.
+- Multi-GPU decode over a process group (``decode_shared_sharded`` with
+  ``gather_shared``, ``decode_batch_sharded``): each rank decodes a
+  contiguous range, then one all-gather (``parallel.shard_decode``).
 
 Every decode takes ``device`` (default ``"cuda"``) in place of the JAX
 package's ``backend``: CUDA tensors run the kernels, CPU tensors their plain
@@ -41,6 +44,7 @@ import torch
 from .. import native
 from ..core import blocks, container, delta as delta_mod
 from ..ops import decode_cuda
+from ..parallel import mesh as mesh_mod, shard_decode
 from .config import CodecConfig
 
 SHARED_MAGIC = b"MHTV"
@@ -1127,3 +1131,143 @@ def decode_batch(prep: PreparedBatch, config: CodecConfig | None = None
         blk.add_(prep.init_b.view(-1, 1))  # the zero-init fold
     return blocks.blocks_to_image_torch(
         blk.view(t, nb, bs), prep.height, prep.width, bd).contiguous()
+
+
+# -- multi-GPU decode ----------------------------------------------------------
+#
+# Each rank decodes a contiguous range of a batch and one all-gather puts the
+# ranges back in order (``parallel.shard_decode``): a shared-table stream by
+# block rows (B1) or blocks (B2), an MHTS batch by frames x blocks (B2).
+
+def _shared_grid(num_frames: int, height: int, width: int, cfg: CodecConfig):
+    """(units a rank's range counts, blocks per unit): block rows at 8x8
+    (B1 writes whole image rows), blocks at other sizes."""
+    bh, bw = blocks.block_grid(height, width, cfg.block_dim)
+    if cfg.block_dim == 8:
+        return num_frames * bh, bw
+    return num_frames * bh * bw, 1
+
+
+def decode_shared_local(stream: container.EncodedStream, num_frames: int,
+                        height: int, width: int,
+                        config: CodecConfig | None = None, *, rank: int,
+                        world: int, device="cuda"):
+    """The local step of :func:`decode_shared_sharded` for ``rank`` of
+    ``world``: stage the code words of the rank's range alone and decode it
+    -> (its block rows as ((hi - lo) * 8, bw * 8) uint8 image rows at 8x8,
+    else its (hi - lo, block_size) blocks; (lo, hi))."""
+    cfg = config or CodecConfig()
+    if stream.block_init is not None:
+        raise ValueError(
+            "sharded decode returns raw rows or blocks and cannot fold "
+            "zero-init roots; use decode_frames_shared")
+    if cfg.delta2d and cfg.block_dim != 8:
+        raise ValueError("sharded delta2d decode needs 8x8 blocks "
+                         "(the in-kernel reconstruction)")
+    kdelta = cfg.delta and not cfg.delta2d
+    units, per_unit = _shared_grid(num_frames, height, width, cfg)
+    lo, hi = shard_decode.block_range(rank, world, units)
+    *args, table = shard_decode.shard_stream_inputs(
+        stream, lo * per_unit, hi * per_unit, cfg.block_size, device=device)
+    if cfg.block_dim == 8:
+        local = decode_cuda.decode_images(
+            *args, num_frames=1, bh=hi - lo, bw=per_unit, delta=kdelta,
+            delta2d=cfg.delta2d, table=table)[0]
+    else:
+        local = decode_cuda.decode_blocks(
+            *args, num_steps=cfg.block_size, delta=kdelta, table=table)
+    return local, (lo, hi)
+
+
+def decode_shared_sharded(stream: container.EncodedStream, num_frames: int,
+                          height: int, width: int, mesh=None,
+                          config: CodecConfig | None = None, *,
+                          device="cuda"):
+    """Multi-GPU shared-table batch decode: this rank's range, decoded on
+    ``device``, and the range.
+
+    At 8x8 each rank runs B1 on a contiguous range of the block rows of the
+    stacked frames, and holds that horizontal slice of them; at other block
+    sizes B2 on a range of blocks (see :func:`decode_shared_local`).
+    :func:`gather_shared` gathers every rank's part into the (T, H, W)
+    frames; the ranges run over ``mesh``'s ``"seq"`` axis (every rank of
+    the process group when None). Streams with zero-init roots, and delta2d off 8x8, raise.
+    """
+    rank, world, _ = mesh_mod.axis_coords(mesh)
+    return decode_shared_local(stream, num_frames, height, width, config,
+                               rank=rank, world=world, device=device)
+
+
+def _frames_from_units(flat: torch.Tensor, num_frames: int, height: int,
+                       width: int, cfg: CodecConfig) -> torch.Tensor:
+    """The decoded units of a shared-table batch in stream order, one row
+    each (zero rows past the last one allowed) -> the (T, H, W) frames."""
+    bh, bw = blocks.block_grid(height, width, cfg.block_dim)
+    units, _ = _shared_grid(num_frames, height, width, cfg)
+    if cfg.block_dim == 8:
+        return flat[:units].view(num_frames, bh * 8, bw * 8)[:, :height, :width]
+    return blocks.blocks_to_image_torch(
+        flat[:units].view(num_frames, bh * bw, cfg.block_size), height, width,
+        cfg.block_dim)
+
+
+def frames_from_shards(parts, num_frames: int, height: int, width: int,
+                       config: CodecConfig | None = None) -> torch.Tensor:
+    """Every rank's :func:`decode_shared_local` output, in rank order ->
+    the (T, H, W) frames."""
+    cfg = config or CodecConfig()
+    _, per_unit = _shared_grid(num_frames, height, width, cfg)
+    return _frames_from_units(
+        torch.cat([p.reshape(-1, per_unit * cfg.block_size) for p in parts]),
+        num_frames, height, width, cfg)
+
+
+def gather_shared(local: torch.Tensor, num_frames: int, height: int,
+                  width: int, mesh=None,
+                  config: CodecConfig | None = None) -> torch.Tensor:
+    """All-gather every rank's part of :func:`decode_shared_sharded` ->
+    the (T, H, W) uint8 frames on every rank."""
+    cfg = config or CodecConfig()
+    _, _, group = mesh_mod.axis_coords(mesh)
+    units, per_unit = _shared_grid(num_frames, height, width, cfg)
+    rows = shard_decode.gather_rows(
+        local.reshape(-1, per_unit * cfg.block_size), units, group)
+    return _frames_from_units(rows, num_frames, height, width, cfg)
+
+
+def decode_batch_local(prep: PreparedBatch, config: CodecConfig | None = None,
+                       *, data: tuple[int, int] = (0, 1),
+                       seq: tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """The local step of :func:`decode_batch_sharded` for the rank at
+    (index, size) ``data`` on the frame axis and ``seq`` on the block axis:
+    B2 on its frames and blocks, each frame with its own table, then the
+    delta2d post-pass and the zero-init fold on them -> (ceil(T / data
+    size), ceil(nb / seq size), block_size) uint8."""
+    cfg = config or CodecConfig()
+    if cfg.block_dim != prep.block_dim:
+        raise ValueError(f"batch was staged for block_dim {prep.block_dim}, "
+                         f"config has {cfg.block_dim}")
+    blk = shard_decode.decode_frames_local(
+        prep.frames, data=data, seq=seq, num_steps=cfg.block_size,
+        delta=cfg.delta and not cfg.delta2d)
+    if cfg.delta2d:
+        blk = delta_mod.delta2d_decode_blocks(blk, cfg.block_dim)
+    if prep.init_b is not None:
+        f0, f1 = shard_decode.block_range(*data, len(prep.frames))
+        b0, b1 = shard_decode.block_range(*seq, prep.bh * prep.bw)
+        blk[: f1 - f0, : b1 - b0].add_(prep.init_b[f0:f1, b0:b1, None])
+    return blk
+
+
+def decode_batch_sharded(prep: PreparedBatch, mesh=None,
+                         config: CodecConfig | None = None) -> torch.Tensor:
+    """Multi-GPU MHTS batch decode on a ``data x seq`` mesh: frames over
+    ``data``, block ranges over ``seq`` (:func:`decode_batch_local`), one
+    all-gather -> (T, nb padded to a multiple of the seq axis, block_size)
+    uint8 blocks on every rank, the zero-init roots folded in; crop to the
+    frame's blocks and reassemble with ``blocks.blocks_to_image_torch``.
+    ``mesh``: 2-D over every rank (``parallel.mesh.make_mesh_2d``'s default
+    when None)."""
+    data, seq, layout = mesh_mod.grid_layout(mesh)
+    local = decode_batch_local(prep, config, data=data, seq=seq)
+    return shard_decode.gather_grid(local, len(prep.frames), layout)

@@ -67,6 +67,13 @@ depth = pan.astype(np.uint16) * 16 + np.arange(24, dtype=np.uint16) * 99
 g16 = color.encode_gray16_to_bytes(depth)
 got = color.decode_gray16_from_bytes(g16, "cpu")
 assert got.dtype == np.uint16 and (got == depth).all()
+# the multi-GPU modules: every rank's local step in turn, assembled
+from metalhuffman_tpu_torch.parallel import mesh, multihost, shard_encode
+parts = [frame_stream.decode_shared_local(stream, 2, 16, 24, rank=r, world=3,
+                                          device="cpu")[0] for r in range(3)]
+assert (frame_stream.frames_from_shards(parts, 2, 16, 24).numpy() == frames).all()
+assert shard_encode.symbol_range(2, 3, payload.size)[1] == payload.size
+assert mesh.process_info() == (0, 1) and multihost.gather_blocks
 assert not any(m == "jax" or m.startswith(("jax.", "metalhuffman_tpu."))
                or m == "metalhuffman_tpu" for m in sys.modules
                if sys.modules[m] is not None)
