@@ -106,9 +106,27 @@ Phases (any failure exits nonzero and prints no result):
    each sharded call against its single-device call, the 94.4 MB
    all-gather, the cross-check and the splice apart; one ``phase H`` JSON
    line before the last two lines holds them with the launch counts.
+10. Phase I, the CLI (``metalhuffman_tpu_torch.cli.main``) in this
+   process with ``--device cuda:0``, on files in a temporary directory at
+   full size: the bridge photo through ``encode``, ``info``, ``decode`` to
+   PNG and ``.gray``, ``roundtrip`` at 8x8 (B1) and 16x16 (B2), ``encode
+   --best``, ``--color --subgreen`` on 3 shifted copies, ``--gray16`` on
+   the photo x16 plus a gradient, ``inspect --block 0``; the 30x2048x1536
+   synthetic frames as ``.npy`` through ``encode-video`` and
+   ``decode-video`` (whole, ``--check``, ``--frames 10 20``, ``--frame 29``,
+   a 512x512 ``--region`` of frames 5-9 on B2) and ``verify``; an MHTS
+   with ``--check``; ``--temporal --motion --best-fast`` of 30 panned photo
+   frames, whole and ``--frame 13``; F1's MHV2 through ``decode-video
+   --streaming`` and ``verify --streaming``; one flipped bit in its segment
+   1 refused by ``--check`` and zeroed by ``--check --salvage`` (the mask
+   from B1's plain version); ``bench --precoder delta2d``; then one
+   subprocess ``python3 -m metalhuffman_tpu_torch roundtrip`` with no
+   ``--device``. Every output equals its source; one ``phase I`` JSON line
+   holds each command's host-clock seconds, the bench's GB/s and spread
+   and the launches.
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
-   F, G and H and must match the decodes, encodes and probes each made.
-10. Times, with CUDA events over distinct staged inputs: B1 with and without
+   F, G, H and I and must match the decodes, encodes and probes each made.
+11. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -132,8 +150,8 @@ Phases (any failure exits nonzero and prints no result):
    folds' gather-rolls and adds apart.
 
 The last two lines are a JSON object describing the kernels and the result
-line ``{"ok": true, "device": {...}}``; the ``phase H`` line comes before
-them.
+line ``{"ok": true, "device": {...}}``; the ``phase H`` and ``phase I``
+lines come before them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -2032,6 +2050,283 @@ def h_timings(device, card: str, m, m2, stream8, args16, table16, prep3,
     return times
 
 
+I_REGION = (512, 512, 512, 512)  # (y0, x0, rh, rw) of phase I's region
+I_FRAME = 13  # the temporal --frame of phase I
+I_ITERS = 10  # the bench's calls per repetition (its CLI default)
+
+
+def run_cli(label: str, argv: list, times: dict) -> str:
+    """``cli.main(argv)`` in this process, its stdout captured -> the
+    stdout; the host-clock seconds go to ``times[label]``. A SystemExit or a
+    nonzero return is a phase failure."""
+    import contextlib
+    import io
+
+    from metalhuffman_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(a) for a in argv])
+    except SystemExit as e:
+        raise PhaseError(f"phase I {label}: exited with {e.code!r}") from None
+    times[label] = time.perf_counter() - t0
+    check(rc == 0, f"phase I {label}: returned {rc}")
+    out = buf.getvalue().strip()
+    print(f"phase I {label}: {times[label]:.3f} s; "
+          f"{out.splitlines()[-1] if out else ''}")
+    return out
+
+
+def cli_refuses(label: str, argv: list, times: dict) -> str:
+    """``cli.main(argv)`` must exit nonzero -> its message."""
+    from metalhuffman_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    try:
+        cli.main([str(a) for a in argv])
+    except SystemExit as e:
+        times[label] = time.perf_counter() - t0
+        check(e.code not in (0, None), f"phase I {label}: exit {e.code!r}")
+        print(f"phase I {label}: {times[label]:.3f} s; refused: {e.code}")
+        return str(e.code)
+    raise PhaseError(f"phase I {label}: the corrupt stream decoded")
+
+
+def phase_i(device, blob1: bytes) -> tuple[dict, dict, dict]:
+    """The CLI (``metalhuffman_tpu_torch.cli.main``) on files in a temporary
+    directory, ``--device`` ``device``, at full size: the photo (encode,
+    info, decode to PNG and .gray, roundtrip at 8 and 16, --best, color
+    sub-green, gray16, inspect), a 30x2048x1536 synthetic video (MHTV: whole,
+    --check, --frames, --frame, --region, verify; MHTS --check; MHVT
+    --temporal --motion --best-fast of panned photo frames, whole,
+    --frame, --check and verify), F1's 150-frame MHV2 (``blob1``; --streaming, verify
+    --streaming, a flipped bit in segment 1 refused by --check and zeroed
+    by --check --salvage), ``bench`` and one subprocess with no --device.
+    Returns (the launches each kernel made, after checking them; each
+    command's host-clock seconds; the bench's numbers)."""
+    import contextlib
+    import io
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from metalhuffman_tpu_torch import bench
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.ops import decode_cuda
+    from metalhuffman_tpu_torch.utils import fixtures, imageio
+
+    t, h, w = FULL
+    dev = ["--device", str(device)]
+    times: dict = {}
+    img = photo()[:h, :w]
+    rgb = np.stack([img, np.roll(img, 7, axis=1), np.roll(img, 13, axis=0)],
+                   axis=-1)
+    g16 = (img.astype(np.uint16) * 16
+           + (np.arange(w, dtype=np.uint16) % 16)[None, :])
+    video = synthetic(t, h, w)
+    pan = photo_frames(h, w, t)
+    f1 = photo_frames(h, w, F1_FRAMES)
+    segs1, *_ = fs.read_segmented(blob1)
+    cfg8 = CodecConfig()
+    # the flipped bit: inside segment 1, one the end-bit check flags
+    s1, ft1 = segs1[1]
+    per = (h // 8) * (w // 8)
+    fbit, fblock = seek_flip(s1, 0, ft1 * per, 1, cfg8)
+    bad_segs = [segs1[0], (flip_bit(s1, fbit), ft1), *segs1[2:]]
+    bad_blob = fs.write_segmented(bad_segs, h, w, cfg8,
+                                  source_crc32=fs.source_crc32(blob1),
+                                  frame_crcs=fs.read_frame_crcs(blob1))
+    with tempfile.TemporaryDirectory(prefix="mht_phase_i_") as tmp:
+        d = Path(tmp)
+        src = fixtures.PHOTO
+        if (h, w) != (1536, 2048):  # a shrunken rehearsal: the crop
+            src = d / "photo.png"
+            imageio.save_grayscale(img, src)
+        imageio.save_color(rgb, d / "rgb.png")
+        np.save(d / "g16.npy", g16)
+        np.save(d / "video.npy", video)
+        np.save(d / "pan.npy", pan)
+        (d / "f1.mhv2").write_bytes(blob1)
+        (d / "bad.mhv2").write_bytes(bad_blob)
+        del bad_blob
+
+        def same(label, got, want):
+            check(got.shape == want.shape and np.array_equal(got, want),
+                  f"phase I {label}: the output differs from its source")
+
+        reset_launches()
+        # the photo
+        run_cli("encode", ["encode", src, d / "p.mht"], times)
+        run_cli("info", ["info", d / "p.mht"], times)
+        run_cli("decode png", ["decode", d / "p.mht", d / "p.png", *dev],
+                times)
+        same("decode png", imageio.load_grayscale(d / "p.png"), img)
+        run_cli("decode gray", ["decode", d / "p.mht", d / "p.gray", *dev],
+                times)
+        same("decode gray", imageio.load_raw_gray(d / "p.gray"), img)
+        for bd in (8, 16):
+            run_cli(f"roundtrip {bd}x{bd}", ["roundtrip", src, "--block-dim",
+                                             bd, *dev], times)
+        run_cli("encode --best", ["encode", src, d / "b.mht", "--best"],
+                times)
+        run_cli("decode --best", ["decode", d / "b.mht", d / "b.png", *dev],
+                times)
+        same("decode --best", imageio.load_grayscale(d / "b.png"), img)
+        run_cli("encode --color --subgreen",
+                ["encode", d / "rgb.png", d / "c.mhtc", "--color",
+                 "--subgreen"], times)
+        run_cli("decode color", ["decode", d / "c.mhtc", d / "c.png", *dev],
+                times)
+        same("decode color", imageio.load_color(d / "c.png"), rgb)
+        run_cli("encode --gray16", ["encode", d / "g16.npy", d / "g.mhtc",
+                                    "--gray16"], times)
+        run_cli("decode gray16", ["decode", d / "g.mhtc", d / "g.npy", *dev],
+                times)
+        same("decode gray16", np.load(d / "g.npy"), g16)
+        out = run_cli("inspect", ["inspect", d / "p.mht", "--block", "0"],
+                      times)
+        check(out.count("\n  [") == 64, "phase I inspect: not 64 symbols")
+        # the video
+        run_cli("encode-video", ["encode-video", d / "video.npy",
+                                 d / "v.mhtv"], times)
+        run_cli("decode-video", ["decode-video", d / "v.mhtv", d / "v.npy",
+                                 *dev], times)
+        same("decode-video", np.load(d / "v.npy"), video)
+        run_cli("decode-video --check", ["decode-video", d / "v.mhtv",
+                                         d / "vc.npy", "--check", *dev],
+                times)
+        same("decode-video --check", np.load(d / "vc.npy"), video)
+        run_cli("decode-video --frames 10 20",
+                ["decode-video", d / "v.mhtv", d / "vr.npy", "--frames", 10,
+                 20, *dev], times)
+        same("decode-video --frames", np.load(d / "vr.npy"), video[10:20])
+        run_cli("decode-video --frame 29",
+                ["decode-video", d / "v.mhtv", d / "v29.npy", "--frame", 29,
+                 *dev], times)
+        same("decode-video --frame", np.load(d / "v29.npy"), video[29])
+        y0, x0, rh, rw = I_REGION
+        run_cli("decode-video --region",
+                ["decode-video", d / "v.mhtv", d / "reg.npy", "--region", y0,
+                 x0, rh, rw, "--frames", 5, 9, *dev], times)
+        same("decode-video --region", np.load(d / "reg.npy"),
+             video[5:9, y0 : y0 + rh, x0 : x0 + rw])
+        run_cli("verify", ["verify", d / "v.mhtv", *dev], times)
+        # per-frame tables and temporal video
+        run_cli("encode-video --per-frame-tables",
+                ["encode-video", d / "video.npy", d / "s.mhts",
+                 "--per-frame-tables"], times)
+        run_cli("decode-video MHTS --check",
+                ["decode-video", d / "s.mhts", d / "s.npy", "--check", *dev],
+                times)
+        same("decode-video MHTS", np.load(d / "s.npy"), video)
+        run_cli("encode-video --temporal --motion --best-fast",
+                ["encode-video", d / "pan.npy", d / "t.mhvt", "--temporal",
+                 "--motion", "--best-fast"], times)
+        run_cli("decode-video MHVT", ["decode-video", d / "t.mhvt",
+                                      d / "t.npy", *dev], times)
+        same("decode-video MHVT", np.load(d / "t.npy"), pan)
+        run_cli(f"decode-video MHVT --frame {I_FRAME}",
+                ["decode-video", d / "t.mhvt", d / "t13.npy", "--frame",
+                 I_FRAME, *dev], times)
+        same("decode-video MHVT --frame", np.load(d / "t13.npy"),
+             pan[I_FRAME])
+        run_cli("decode-video MHVT --check",
+                ["decode-video", d / "t.mhvt", d / "tc.npy", "--check",
+                 *dev], times)
+        same("decode-video MHVT --check", np.load(d / "tc.npy"), pan)
+        out = run_cli("verify MHVT", ["verify", d / "t.mhvt", *dev], times)
+        check(any(ln.split()[:3] == ["temporal", "CRC-32", "ok"]
+                  for ln in out.splitlines()),
+              "phase I verify MHVT: the temporal CRC-32 was not checked")
+        # streaming decode of F1's MHV2
+        run_cli("decode-video --streaming",
+                ["decode-video", d / "f1.mhv2", d / "f1.npy", "--streaming",
+                 *dev], times)
+        same("decode-video --streaming", np.load(d / "f1.npy",
+                                                 mmap_mode="r"), f1)
+        (d / "f1.npy").unlink()
+        run_cli("verify --streaming", ["verify", d / "f1.mhv2",
+                                       "--streaming", *dev], times)
+        # salvage
+        msg = cli_refuses("decode-video --check (flipped bit)",
+                          ["decode-video", d / "bad.mhv2", d / "x.npy",
+                           "--check", *dev], times)
+        check(msg.startswith("stream integrity check failed in segment 1"),
+              f"phase I --check: {msg}")
+        run_cli("decode-video --check --salvage",
+                ["decode-video", d / "bad.mhv2", d / "sv.npy", "--check",
+                 "--salvage", *dev], times)
+        salvaged = np.load(d / "sv.npy", mmap_mode="r")
+        # bench
+        buf = io.StringIO()
+        with contextlib.redirect_stderr(buf):
+            out = run_cli("bench", ["bench", "--frames", t, "--height", h,
+                                    "--width", w, "--precoder", "delta2d",
+                                    "--iters", I_ITERS, *dev], times)
+        print("\n".join(f"phase I bench: {ln}"
+                        for ln in buf.getvalue().splitlines()))
+        gbps, _unit, rest = out.splitlines()[-1].split(" ", 2)
+        spread = float(rest.split("spread ")[1].split("%")[0])
+        counts = read_launches()
+        # the mask the salvage must zero, from B1's plain version (no launch)
+        prep = fs.prepare_shared(bad_segs[1][0], ft1, h, w, cfg8,
+                                 device=device, check=True)
+        _, end = decode_cuda.decode_images_plain(
+            prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj,
+            num_frames=ft1, bh=prep.bh, bw=prep.bw, delta=True,
+            emit_end=True)
+        err = decode_cuda.check_block_ends(end, prep.end_targets).cpu().numpy()
+        del prep, end
+        check(bool(err[fblock]), "phase I: the plain version does not flag "
+              "the flipped block")
+        want = f1.copy()
+        base = segs1[0][1]
+        want[base : base + ft1] = fs.salvage_blocks(
+            want[base : base + ft1], err, 8)[0]
+        same("decode-video --check --salvage", salvaged, want)
+        print(f"phase I salvage: {int(err.sum())} block(s) flagged in "
+              f"segment 1 (flipped bit {fbit} in block {fblock}), zeroed; "
+              f"the rest == the frames")
+        del salvaged, want
+        # one subprocess, no --device: the default must reach the card
+        argv = [sys.executable, "-m", "metalhuffman_tpu_torch", "roundtrip",
+                str(src)]
+        if torch.device(device).type == "cpu":
+            argv += ["--device", "cpu"]  # the CPU rehearsal
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=300)
+        times["subprocess roundtrip"] = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"phase I subprocess: exit {proc.returncode}: {proc.stderr}")
+        print(f"phase I subprocess roundtrip (no --device): "
+              f"{times['subprocess roundtrip']:.3f} s; "
+              f"{proc.stdout.strip()}")
+    # bench: each rotation checked, a warm-up round, the timed reps, the
+    # same-input reps and the per-call latencies
+    v = min(bench.VARIANTS, t)
+    n_bench = v + v + bench.REPS * I_ITERS + 3 * I_ITERS + 3 * v
+    expected = expect(
+        decode_images=(2 + 1 + 1 + 1)  # decodes: png, gray, best, color, u16
+        + 1  # roundtrip 8x8
+        + 5  # video: whole, --check, --frames, --frame, verify
+        + t  # MHTS --check: a launch per frame
+        + 4  # MHVT: whole, --frame, --check, verify
+        + 2 * len(segs1)  # --streaming, verify --streaming
+        + 2 + len(segs1)  # --check (refused in segment 1), --salvage
+        + n_bench,
+        decode_blocks=1 + 1)  # roundtrip 16x16, --region
+    check(counts == expected,
+          f"phase I: kernel launches {counts}, expected {expected}")
+    print(f"phase I launches: {counts}")
+    return counts, times, {"gbps": float(gbps), "spread_pct": spread,
+                           "precoder": "delta2d", "frames": t}
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
           unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
@@ -2770,6 +3065,9 @@ def main(argv: list[str]) -> int:
                                         f_ctx["streams3"])
     for name, count in h_counts.items():
         launches[name] += count
+    i_counts, i_times, i_bench = phase_i(device, f_ctx["blob1"])
+    for name, count in i_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -2791,6 +3089,8 @@ def main(argv: list[str]) -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("phase H " + json.dumps({"card": card, "launches": h_counts,
                                    "ms": h_times}))
+    print("phase I " + json.dumps({"card": card, "launches": i_counts,
+                                   "s": i_times, "bench": i_bench}))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

@@ -1,6 +1,10 @@
-"""Two-level decode lookup tables (copy of
-``metalhuffman_tpu/core/tables.py::build_split_tables``, ``pack_entries`` and
+"""Decode lookup tables (copy of ``metalhuffman_tpu/core/tables.py``'s
+``build_single_table``, ``build_split_tables``, ``pack_entries`` and
 ``unpack_entry``).
+
+Single table: 65536 entries indexed by a 16-bit left-justified window
+(reference: ``HuffmanUtil.cpp:314-334``); each active symbol covers
+``[code_lj, code_lj + 2^(16-w))``. ``utils.debug`` traces blocks with it.
 
 Split two-level table (T1 = :data:`K1` bits, T2 = :data:`K2` bits over the
 16-bit decode window; reference: ``HuffmanUtil.cpp:338-667``): T1 entries
@@ -22,10 +26,27 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import native
+from .canonical import canonical_codes
 
 #: bits indexed by T1 and by each secondary table: 8 and 8, the split the
 #: ``lut`` decode indexes (``window >> 8``, ``(entry & 0xFF) << 8``)
 K1 = K2 = 8
+
+
+def build_single_table(widths: np.ndarray):
+    """Full 16-bit lookup table: returns (symbol[65536] u8, width[65536] u8)."""
+    widths = np.asarray(widths, dtype=np.uint8)
+    codes = canonical_codes(widths)
+    sym_plane = np.zeros(1 << 16, dtype=np.uint8)
+    w_plane = np.zeros(1 << 16, dtype=np.uint8)
+    active = np.nonzero(widths)[0]
+    for s in active:
+        w = int(widths[s])
+        start = int(codes[s])
+        span = 1 << (16 - w)
+        sym_plane[start : start + span] = s
+        w_plane[start : start + span] = w
+    return sym_plane, w_plane
 
 
 @dataclass(frozen=True)

@@ -26,6 +26,7 @@ takes ``device`` (default ``"cuda"``) and goes through the port's
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 
 import numpy as np
@@ -220,6 +221,29 @@ def decode_color_from_bytes(blob: bytes, device="cuda") -> np.ndarray:
         # legacy: a bare MHTV whose frame count is the channel count
         planes, cs = _decode_planes(blob, device), CS_IDENTITY
     return _invert_cs(np.moveaxis(planes, 0, -1), cs)
+
+
+def encode_color_best(img: np.ndarray,
+                      config: CodecConfig | None = None) -> bytes:
+    """Measure the colorspaces (identity, and sub-green for 3+ channels)
+    and the precoders none/delta/delta2d on the real payload; keep the
+    smallest container (counterpart of the JAX package's
+    ``color.encode_color_best``: up to 2x3 host encodes)."""
+    img = np.asarray(img)
+    cfg = config or CodecConfig()
+    spaces = [CS_IDENTITY]
+    if img.ndim == 3 and img.shape[-1] >= 3:
+        spaces.append(CS_SUBGREEN)
+    configs = [
+        dataclasses.replace(cfg, delta=False, delta2d=False,
+                            zero_init=False),
+        dataclasses.replace(cfg, delta=True, delta2d=False),
+        dataclasses.replace(cfg, delta=True, delta2d=True),
+    ]
+    return min(
+        (encode_color_to_bytes(img, c, colorspace=cs)
+         for cs in spaces for c in configs),
+        key=len)
 
 
 def encode_color_video_to_bytes(

@@ -24,6 +24,7 @@ import zlib
 import numpy as np
 import torch
 
+from .. import native
 from ..core import bitstream, blocks, container, delta as delta_mod
 from ..ops import decode_cuda
 from . import frame_stream
@@ -52,6 +53,28 @@ class ImageCodec:
         if img.ndim != 2:
             raise ValueError("img must be (H, W)")
         return frame_stream.encode_frames_shared(img[None], self.config)
+
+    def encode_best(self, img: np.ndarray):
+        """Encode with no precoder, the 1-D delta and the 2-D delta; keep the
+        smallest stream (counterpart of the JAX package's
+        ``ImageCodec.encode_best``).
+
+        Returns ``(stream, delta_used)``; the stream's ``predictor`` says
+        whether the 2-D delta won, and the MHT1 header records both.
+        """
+        cfg = self.config
+        blk = blocks.image_to_blocks(img, cfg.block_dim).ravel()
+        plain = native.encode_symbols(blk, block_size=cfg.block_size)
+        deltas = native.encode_symbols(
+            native.delta_encode(blk, cfg.block_size),
+            block_size=cfg.block_size)
+        d2 = dataclasses.replace(
+            native.encode_symbols(
+                native.delta2d_encode(blk, cfg.block_dim),
+                block_size=cfg.block_size),
+            predictor="2d")
+        best = min((plain, deltas, d2), key=lambda s: s.compressed_size)
+        return best, best is not plain
 
     def encode_to_bytes(self, img: np.ndarray) -> bytes:
         """Image -> on-disk MHT1 container (records a source CRC-32)."""

@@ -20,9 +20,10 @@ follows the header and the two tables sit after the inner, before the
 source CRC. :func:`unwrap` reads both layouts; :func:`wrap` writes both.
 
 The host half (the container, the numpy transforms, motion estimation, the
-encoders) is a copy of the JAX package's. The decode runs on ``device``:
-the inner through the decode kernels (``frame_stream.
-decode_container_device``, or ``decode_range_parsed(..., to_host=False)``),
+encoders and the ``--best`` searches) is a copy of the JAX package's. The
+decode runs on ``device``: the inner through the decode kernels
+(``frame_stream.decode_container_device``, or
+``decode_range_parsed(..., to_host=False)``),
 the plane fold (``color.fold_video_planes_torch``), then the group fold
 (:func:`temporal_fold`) or the motion-compensated fold
 (:func:`temporal_fold_mc`) on the true frames, then one fetch and the CRCs.
@@ -34,12 +35,15 @@ folds byte and 16-bit frames directly.
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 import zlib
 
 import numpy as np
 import torch
 
+from .. import native
+from ..core import blocks
 from . import color, frame_stream
 from .config import CodecConfig
 
@@ -572,6 +576,175 @@ def encode_temporal_gray16_video(frames: np.ndarray,
                 frame_crcs=_frame_crcs(frames, cfg))
 
 
+# -- the --best searches (host work) --------------------------------------------
+
+
+def _precoders(cfg: CodecConfig) -> list:
+    """The none, delta and delta2d variants of ``cfg``."""
+    return [
+        dataclasses.replace(cfg, delta=False, delta2d=False, zero_init=False),
+        dataclasses.replace(cfg, delta=True, delta2d=False),
+        dataclasses.replace(cfg, delta=True, delta2d=True),
+    ]
+
+
+def _best_precoder(frames: np.ndarray, cfg: CodecConfig) -> CodecConfig:
+    """Smallest of none/delta/delta2d measured on the actual payload."""
+
+    def total(c):
+        return sum(s.compressed_size
+                   for s, _ in frame_stream.encode_frames_segmented(frames, c))
+
+    return min(_precoders(cfg), key=total)
+
+
+def _estimate_candidate_bits(blk: np.ndarray, cfg: CodecConfig) -> float:
+    """Compressed size of a sampled BLOCKED payload under cfg's precoder:
+    the production encoder run on the subsample (exact widths and table
+    overhead)."""
+    if cfg.delta2d:
+        payload = native.delta2d_encode(blk, cfg.block_dim)
+    elif cfg.delta:
+        payload = native.delta_encode(blk, cfg.block_size)
+    else:
+        payload = blk
+    return float(native.encode_symbols(
+        payload, block_size=cfg.block_size).compressed_size)
+
+
+def _sample_indices(t: int, keyint: int, max_samples: int = 12) -> list[int]:
+    """Strided frame indices preserving the keyframe/residual mixture.
+
+    The stride is nudged coprime with keyint: a stride that is a multiple of
+    keyint would sample (almost) only keyframes.
+    """
+    stride = max(1, t // max_samples)
+    while stride > 1 and math.gcd(stride, keyint) != 1:
+        stride += 1
+    idx = list(range(0, t, stride))
+    if all(i % keyint == 0 for i in idx) and t > 1:
+        idx.append(1)  # ensure at least one residual frame is sampled
+    return idx
+
+
+def _encode_mc(frames: np.ndarray, cfg: CodecConfig, res_mc: np.ndarray,
+               mvs: np.ndarray) -> bytes:
+    """MHVT of motion-compensated residuals already computed."""
+    from .. import encode_video
+
+    return wrap(encode_video(res_mc, _inner_config(cfg)), cfg.keyint,
+                source_crc32=_crc(frames), mvs=mvs,
+                frame_crcs=_frame_crcs(frames, cfg))
+
+
+def encode_video_best_fast(frames: np.ndarray,
+                           config: CodecConfig | None = None):
+    """Subsampled :func:`encode_video_best`: estimate every (mode, precoder)
+    candidate's size on a strided frame subsample, then fully encode only
+    the best-ranked candidate of each of the two best modes (the second only
+    when its estimate is within 5 % of the leader's) and keep the smaller
+    container. Returns ``(blob, kind, used_config)`` like the full search;
+    fewer than 4 frames run the full search.
+    """
+    from .. import encode_video
+
+    cfg = config or CodecConfig()
+    frames = np.asarray(frames)
+    t = frames.shape[0]
+    if t < 4:  # sampling cannot beat measuring on tiny inputs
+        return encode_video_best(frames, cfg)
+    idx = _sample_indices(t, cfg.keyint)
+    modes: dict[str, list] = {}
+    modes["plain"] = [frames[i] for i in idx]
+    modes["temporal"] = [
+        frames[i] if i % cfg.keyint == 0 else frames[i] - frames[i - 1]
+        for i in idx]
+    mvs_sampled = {}
+    if cfg.motion:
+        mc = []
+        for i in idx:
+            if i % cfg.keyint == 0:
+                mc.append(frames[i])
+                continue
+            mv = estimate_motion(frames[i - 1], frames[i])
+            mvs_sampled[i] = mv
+            pred = (np.roll(frames[i - 1], mv, axis=(0, 1))
+                    if mv != (0, 0) else frames[i - 1])
+            mc.append(frames[i] - pred)
+        modes["temporal+motion"] = mc
+    # each mode's sample stack is blocked once; its three precoder
+    # estimates share it
+    blocked = {
+        kind: np.concatenate(
+            [blocks.image_to_blocks(np.ascontiguousarray(f),
+                                    cfg.block_dim).ravel()
+             for f in samples])
+        for kind, samples in modes.items()}
+    ranked = sorted(
+        ((_estimate_candidate_bits(blocked[kind], pc), kind, pc)
+         for kind in modes for pc in _precoders(cfg)),
+        key=lambda r: r[0])
+
+    def full_encode(kind: str, pc: CodecConfig):
+        if kind == "plain":
+            return encode_video(frames, dataclasses.replace(
+                pc, temporal=False, motion=False))
+        if kind == "temporal":
+            return encode_temporal_video(frames, dataclasses.replace(
+                pc, temporal=True, motion=False))
+        # reuse the vectors the sampling pass estimated; estimate the rest
+        mvs = np.zeros((t, 2), np.int16)
+        for i in range(1, t):
+            if i % cfg.keyint:
+                mvs[i] = (mvs_sampled[i] if i in mvs_sampled
+                          else estimate_motion(frames[i - 1], frames[i]))
+        res_mc, mvs = temporal_encode_mc(frames, cfg.keyint, mvs)
+        return _encode_mc(frames, pc, res_mc, mvs)
+
+    finalists = []
+    seen = set()
+    best_bits = ranked[0][0]
+    for bits, kind, pc in ranked:
+        if kind in seen:
+            continue  # one finalist per coding mode (its best precoder)
+        # the runner-up is encoded only when its estimate is within 5 % of
+        # the leader's; a clear win encodes once
+        if finalists and bits > 1.05 * best_bits:
+            break
+        seen.add(kind)
+        finalists.append((full_encode(kind, pc), kind, pc))
+        if len(finalists) == 2:
+            break
+    return min(finalists, key=lambda c: len(c[0]))
+
+
+def encode_video_best(frames: np.ndarray, config: CodecConfig | None = None):
+    """Measure the coding modes, each with its best spatial precoder on its
+    own payload, and keep the smallest container.
+
+    Candidates: plain, temporal, and (with ``config.motion``) temporal with
+    global motion compensation. Returns ``(blob, kind, used_config)`` with
+    ``kind`` one of ``"plain" | "temporal" | "temporal+motion"``.
+    """
+    from .. import encode_video
+
+    cfg = config or CodecConfig()
+    frames = np.asarray(frames)
+    candidates = []
+    cfg_p = _best_precoder(frames, _inner_config(cfg))
+    candidates.append((encode_video(frames, cfg_p), "plain", cfg_p))
+    plain_cfg = dataclasses.replace(cfg, motion=False)
+    cfg_t = _best_precoder(temporal_encode(frames, cfg.keyint), plain_cfg)
+    candidates.append(
+        (encode_temporal_video(frames, cfg_t), "temporal", cfg_t))
+    if cfg.motion:
+        res_mc, mvs = temporal_encode_mc(frames, cfg.keyint)
+        cfg_m = _best_precoder(res_mc, cfg)
+        candidates.append((_encode_mc(frames, cfg_m, res_mc, mvs),
+                           "temporal+motion", cfg_m))
+    return min(candidates, key=lambda c: len(c[0]))
+
+
 # -- decoders ---------------------------------------------------------------------
 
 
@@ -580,6 +753,18 @@ def _fold(res: torch.Tensor, keyint: int, mvs, first_len) -> torch.Tensor:
     if mvs is not None:
         return temporal_fold_mc(res, keyint, mvs, first_len)
     return temporal_fold(res, keyint, first_len)
+
+
+def fold_planes(planes: torch.Tensor, keyint: int, mvs, first_len,
+                cinfo) -> torch.Tensor:
+    """An MHVT's decoded (N, H, W) uint8 residual planes -> its true frames,
+    on the tensor's device: the plane fold for an MHTC inner (``cinfo`` =
+    (channels, kind, colorspace), else None), then the group or the
+    motion-compensated fold. ``planes`` is used up when no plane fold
+    copies it (the folds work in place)."""
+    res = planes if cinfo is None else color.fold_video_planes_torch(
+        planes, *cinfo)
+    return _fold(res, keyint, mvs, first_len)
 
 
 def decode_temporal_video(blob: bytes, device="cuda") -> np.ndarray:
@@ -608,9 +793,8 @@ def decode_temporal_video(blob: bytes, device="cuda") -> np.ndarray:
     if not crc:
         frame_stream.verify_source_crc32(
             planes.cpu().numpy(), frame_stream.source_crc32(planes_blob))
-    res = planes if cinfo is None else color.fold_video_planes_torch(
-        planes, *cinfo)
-    frames = _fold(res, keyint, mvs, first_len).cpu().numpy()
+    frames = fold_planes(planes, keyint, mvs, first_len,
+                         cinfo).cpu().numpy()
     if crc and _crc(frames) != crc:
         decode_video(planes_blob, device)  # raises on a corrupt inner
         raise ValueError(

@@ -1,2 +1,2 @@
-"""Helpers of the port outside the codec: the frames its smoke run and
-probes decode."""
+"""Helpers of the port outside the codec: image file IO, the stream debug
+views, timing, and the frames its smoke run and probes decode."""

@@ -2,6 +2,7 @@
 no module-level Triton, CUDA and host builds that fail loudly, and no
 plain-version fallback off the CPU."""
 
+import os
 import re
 import shutil
 import subprocess
@@ -83,6 +84,63 @@ print("ok")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_cli_runs_without_jax(tmp_path):
+    frames = np.random.default_rng(3).integers(0, 256, (4, 16, 24), np.uint8)
+    np.save(tmp_path / "v.npy", frames)
+    from metalhuffman_tpu_torch.utils import imageio
+
+    imageio.save_grayscale(frames[0], tmp_path / "f.png")
+    code = """
+import runpy, sys
+sys.modules['jax'] = None
+sys.modules['metalhuffman_tpu'] = None
+sys.argv = ['metalhuffman_tpu_torch'] + sys.argv[1:]
+try:
+    runpy.run_module('metalhuffman_tpu_torch', run_name='__main__')
+finally:
+    assert not any(m == 'jax' or m.startswith(('jax.', 'metalhuffman_tpu.'))
+                   or m == 'metalhuffman_tpu' for m in sys.modules
+                   if sys.modules[m] is not None)
+"""
+    for argv in (["roundtrip", "f.png", "--device", "cpu"],
+                 ["encode-video", "v.npy", "v.mhtv", "--temporal"],
+                 ["decode-video", "v.mhtv", "o.npy", "--device", "cpu"]):
+        proc = subprocess.run(
+            [sys.executable, "-c", code, *argv], cwd=tmp_path,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+            capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+    np.testing.assert_array_equal(np.load(tmp_path / "o.npy"), frames)
+
+
+def test_cli_decodes_on_cuda_by_default(monkeypatch, tmp_path):
+    from metalhuffman_tpu_torch import cli, encode_image
+
+    def no_cuda():
+        raise RuntimeError("no CUDA device here")
+
+    # the CPU build raises at CUDA's lazy init too; this makes a CUDA
+    # build of torch raise the same way
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_cuda)
+    img = np.random.default_rng(4).integers(0, 256, (16, 24), np.uint8)
+    (tmp_path / "f.mht").write_bytes(encode_image(img))
+    calls = []
+    for name in ("decode_images_plain", "decode_blocks_plain"):
+        monkeypatch.setattr(decode_cuda, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    out = tmp_path / "f.png"
+    with pytest.raises(RuntimeError, match="no CUDA device here"):
+        cli.main(["decode", str(tmp_path / "f.mht"), str(out)])
+    assert not out.exists() and not calls
+
+
+def test_guard_glob_covers_the_cli_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"metalhuffman_tpu_torch/{m}.py" for m in (
+        "cli", "__main__", "bench", "utils/imageio", "utils/debug",
+        "utils/profiling", "core/decode_ref")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
