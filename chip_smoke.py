@@ -124,9 +124,29 @@ Phases (any failure exits nonzero and prints no result):
    ``--device``. Every output equals its source; one ``phase I`` JSON line
    holds each command's host-clock seconds, the bench's GB/s and spread
    and the launches.
+11. Phase J, the example and script twins (``examples/*_torch.py``,
+   ``scripts/*_torch.py``) with ``--device cuda:0``. In this process, by
+   their ``main``: ``quickstart_torch`` (the 512x512 ``image1`` frame,
+   MHT1, ``ImageCodec``, an MHTV of two 16x16 frames), ``video_pipeline_torch``
+   (6 panned 2048x1536 photo frames: delta2d MHTV, ``StreamingDecoder``,
+   ``decode_frame``, the checked decode, ``encode_video_best`` with motion,
+   a 256x256 region of frames 2-5 on B2), ``color_pipeline_torch`` (the
+   photo as a color image, a 4-frame color video and a frame of it, a
+   gray16 depth map), each decoded array held equal to its source again
+   here; ``perf_matrix_torch`` at full geometry with ``--frames 8 --iters
+   10 --variants 2`` (B1 at 2048x1536 and 1920x1080, synthetic and photo,
+   delta2d, and the MHVT decode with the gray, motion, color, u16 and
+   color-with-motion folds), its table printed; ``scaling_report_torch``
+   at world 1 (one NCCL rank, started as a subprocess by the report). In
+   subprocesses: ``multihost_decode_torch`` as one NCCL rank, and
+   ``streaming_gate_torch`` at its defaults (each CLI command a process of
+   its own). One ``phase J`` JSON line holds each twin's host-clock
+   seconds, the perf matrix's rows and the launches; the subprocesses'
+   launches are not counted.
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
-   F, G, H and I and must match the decodes, encodes and probes each made.
-11. Times, with CUDA events over distinct staged inputs: B1 with and without
+   F, G, H, I and J and must match the decodes, encodes and probes each
+   made.
+12. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -150,8 +170,8 @@ Phases (any failure exits nonzero and prints no result):
    folds' gather-rolls and adds apart.
 
 The last two lines are a JSON object describing the kernels and the result
-line ``{"ok": true, "device": {...}}``; the ``phase H`` and ``phase I``
-lines come before them.
+line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I`` and
+``phase J`` lines come before them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -2327,6 +2347,122 @@ def phase_i(device, blob1: bytes) -> tuple[dict, dict, dict]:
                            "precoder": "delta2d", "frames": t}
 
 
+ROOT = Path(__file__).resolve().parent
+#: phase J's twins, by label: the script and its arguments after --device
+J_TWINS = {
+    "quickstart": ("examples/quickstart_torch.py", []),
+    "video_pipeline": ("examples/video_pipeline_torch.py", []),
+    "color_pipeline": ("examples/color_pipeline_torch.py", []),
+    "perf_matrix": ("scripts/perf_matrix_torch.py",
+                    ["--frames", 8, "--iters", 10, "--variants", 2]),
+    "scaling_report": ("examples/scaling_report_torch.py", ["--world", 1]),
+    "multihost_decode": ("examples/multihost_decode_torch.py",
+                         ["--world-size", 1, "--rank", 0]),
+    "streaming_gate": ("scripts/streaming_gate_torch.py", []),
+}
+J_TIMEOUT = 900  # seconds for one twin's subprocess
+
+
+def run_twin(label: str, device, times: dict, extra=()):
+    """Phase J: twin ``label``'s ``main`` in this process (``runpy``), with
+    ``--device device`` -> what it returns; the host-clock seconds go to
+    ``times[label]``. A SystemExit is a phase failure."""
+    import runpy
+
+    path, args = J_TWINS[label]
+    argv = ["--device", str(device), *map(str, args), *extra]
+    t0 = time.perf_counter()
+    try:
+        out = runpy.run_path(str(ROOT / path))["main"](argv)
+    except SystemExit as e:
+        raise PhaseError(f"phase J {label}: exited with {e.code!r}") from None
+    times[label] = time.perf_counter() - t0
+    print(f"phase J {label}: {times[label]:.3f} s")
+    return out
+
+
+def run_twin_process(label: str, device, times: dict, extra=()) -> str:
+    """Phase J: twin ``label`` as a subprocess with ``--device device`` ->
+    its stdout; a nonzero exit or ``J_TIMEOUT`` is a phase failure."""
+    import subprocess
+
+    path, args = J_TWINS[label]
+    argv = [sys.executable, str(ROOT / path), "--device", str(device),
+            *map(str, args), *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=J_TIMEOUT)
+    times[label] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase J {label}: exit {proc.returncode}:\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    print(f"phase J {label} (subprocess): {times[label]:.3f} s")
+    print("\n".join(f"  {ln}" for ln in proc.stdout.strip().splitlines()))
+    return proc.stdout
+
+
+def j_expected(perf_args: dict) -> dict:
+    """Phase J's launches in this process. The examples: quickstart B1 3
+    (decode_image, decode_step, decode_video); video_pipeline B1 6
+    (decode_video, the streaming decoder, decode_frame, the checked decode,
+    the temporal decode_video and frame) and B2 1 (the region);
+    color_pipeline B1 4 (image, video, frame, gray16). The perf matrix: 5
+    ``run_video`` rows, each its rotations checked, a warm-up round,
+    ``bench.REPS`` timed and 3 same-input repetitions of ``iters`` calls
+    and 3 latencies per rotation; 5 MHVT rows, each its rotations checked,
+    a warm-up round of the fold-less and the folded call per rotation,
+    ``bench.REPS`` timed and 3 fold-less repetitions of ``iters`` calls."""
+    from metalhuffman_tpu_torch import bench
+
+    v = max(1, min(perf_args["variants"], perf_args["frames"]))
+    iters = perf_args["iters"]
+    video = v + v + bench.REPS * iters + 3 * iters + 3 * v
+    mhvt = v + 2 * v + bench.REPS * iters + 3 * iters
+    return expect(decode_images=3 + 6 + 4 + 5 * video + 5 * mhvt,
+                  decode_blocks=1)
+
+
+def phase_j(device) -> tuple[dict, dict, list, dict]:
+    """The example and script twins on ``device`` (see the module
+    docstring). Returns (the launches each kernel made in this process,
+    after checking them; each twin's host-clock seconds; the perf matrix's
+    rows; the scaling report's numbers at world 1)."""
+    times: dict = {}
+    reset_launches()
+    for label in ("quickstart", "video_pipeline", "color_pipeline"):
+        out = run_twin(label, device, times)
+        for name, (got, want) in out["decoded"].items():
+            check(got.shape == want.shape and got.dtype == want.dtype
+                  and np.array_equal(got, want),
+                  f"phase J {label} {name}: the output differs from its "
+                  f"source")
+        print(f"phase J {label} ok: {len(out['decoded'])} decoded arrays == "
+              f"their sources ({', '.join(out['decoded'])}); blobs "
+              + ", ".join(f"{k} {len(b)} B" for k, b in out["blobs"].items()))
+    rows = run_twin("perf_matrix", device, times)
+    check(len(rows) == 10 and all(r[3] > 0 for r in rows),
+          f"phase J perf_matrix: rows {rows}")
+    counts = read_launches()
+    perf = J_TWINS["perf_matrix"][1]
+    expected = j_expected({k.strip("-"): v for k, v in zip(perf[::2],
+                                                           perf[1::2])})
+    check(counts == expected,
+          f"phase J: kernel launches {counts}, expected {expected}")
+    print(f"phase J launches: {counts}")
+    report = run_twin("scaling_report", device, times)
+    check([r["world"] for r in report] == [1] and report[0]["bit_exact"]
+          and report[0]["byte_identical"],
+          f"phase J scaling_report: {report}")
+    port = free_port()
+    out = run_twin_process("multihost_decode", device, times,
+                           ["--init-method", f"tcp://127.0.0.1:{port}"])
+    check("[p0] encode byte-identical across 1 processes" in out,
+          "phase J multihost_decode: no encode line")
+    out = run_twin_process("streaming_gate", device, times)
+    check(out.strip().splitlines()[-1].startswith(
+        "STREAMING GATE: ALL PASS"), "phase J streaming_gate: no ALL PASS")
+    return counts, times, [list(r) for r in rows], report[0]
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
           unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
@@ -3068,6 +3204,9 @@ def main(argv: list[str]) -> int:
     i_counts, i_times, i_bench = phase_i(device, f_ctx["blob1"])
     for name, count in i_counts.items():
         launches[name] += count
+    j_counts, j_times, j_rows, j_scaling = phase_j(device)
+    for name, count in j_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -3091,6 +3230,9 @@ def main(argv: list[str]) -> int:
                                    "ms": h_times}))
     print("phase I " + json.dumps({"card": card, "launches": i_counts,
                                    "s": i_times, "bench": i_bench}))
+    print("phase J " + json.dumps({"card": card, "launches": j_counts,
+                                   "s": j_times, "perf_matrix": j_rows,
+                                   "scaling_report": j_scaling}))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

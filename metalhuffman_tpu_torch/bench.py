@@ -1,5 +1,6 @@
-"""Decode throughput of the shared-table video batch (counterpart of the
-repository root's ``bench.py::run_video``).
+"""Decode throughput of the shared-table video batch and of the temporal
+(MHVT) decode with its fold (counterparts of the repository root's
+``bench.py::run_video``, ``run_temporal`` and ``run_temporal_ext``).
 
 A batch of ``frames`` frames of ``height`` x ``width`` (synthetic gradients
 or the panned bridge photo) is encoded on the host with one shared table,
@@ -15,6 +16,12 @@ the CPU (:func:`..utils.profiling.elapsed_s`). The result is the median of
 5 repetitions of ``iters`` calls, with the spread (max - min) / median; the
 same-input loop and the per-call latencies are diagnostics on stderr.
 
+:func:`run_temporal` and :func:`run_temporal_ext` time the MHVT decode the
+same way: B1 on a staged residual stream, then ``temporal.fold_planes``
+(the plane fold of a color or u16 inner, then the group or the
+motion-compensated fold) on the card; the fold-less rate of the same staged
+inputs goes to stderr.
+
     python -m metalhuffman_tpu_torch bench --frames 30 --device cuda
 """
 
@@ -29,25 +36,53 @@ REPS = 5  #: timed repetitions of the round-robin loop
 VARIANTS = 4  #: frame-order rotations
 
 
+def _timed_loop(dev, seq, reps: int = REPS) -> list[float]:
+    """Seconds of each of ``reps`` runs over the call sequence ``seq``
+    (:func:`..utils.profiling.elapsed_s`: CUDA events on a card)."""
+    from .utils.profiling import elapsed_s
+
+    def run():
+        for d in seq:
+            d()
+
+    return [elapsed_s(dev, run) for _ in range(reps)]
+
+
+def _rates(nbytes: int, times: list[float]):
+    """GB/s of ``nbytes`` per repetition -> (median, repetitions, spread
+    (max - min) / median in percent, the sorted rates)."""
+    rates = sorted(nbytes / t / 1e9 for t in times)
+    gbps = rates[len(rates) // 2]
+    spread = 100.0 * (rates[-1] - rates[0]) / gbps if gbps else 0.0
+    return gbps, len(rates), spread, rates
+
+
+def _frames(content: str, height: int, width: int, frames: int) -> np.ndarray:
+    """(T, H, W) frames: the panned bridge photo, else the synthetic
+    gradients."""
+    from .utils import fixtures
+
+    if content == "photo":
+        return fixtures.photo_frames(height, width, frames)
+    return fixtures.synthetic(frames, height, width)
+
+
 def run_video(height: int, width: int, frames: int, iters: int,
               content: str = "synthetic", precoder: str = "delta",
-              device="cuda"):
+              device="cuda", variants: int = VARIANTS):
     """Decode GB/s of the batch -> ``(median GB/s, repetitions, spread
-    in percent)``. Raises ValueError when a rotation decodes wrong."""
+    in percent)``, over ``variants`` staged rotations. Raises ValueError
+    when a rotation decodes wrong."""
     import torch
 
     from .models import frame_stream
     from .models.config import CodecConfig
-    from .utils import fixtures
     from .utils.profiling import elapsed_s
 
     dev = torch.device(device)
     cfg = CodecConfig(delta2d=precoder == "delta2d")
-    if content == "photo":
-        base = fixtures.photo_frames(height, width, frames)
-    else:
-        base = fixtures.synthetic(frames, height, width)
-    variants = min(VARIANTS, frames)
+    base = _frames(content, height, width, frames)
+    variants = max(1, min(variants, frames))
     batches = [np.roll(base, v, axis=0) for v in range(variants)]
     t0 = time.perf_counter()
     streams = [frame_stream.encode_frames_shared(b, cfg) for b in batches]
@@ -63,25 +98,14 @@ def run_video(height: int, width: int, frames: int, iters: int,
             raise ValueError(f"decode mismatch on variant {v} "
                              f"({int((out != b).sum())} bytes)")
 
-    def timed_loop(seq, reps: int = REPS) -> list[float]:
-        """Seconds of each of ``reps`` runs over the call sequence."""
-
-        def run():
-            for d in seq:
-                d()
-
-        return [elapsed_s(dev, run) for _ in range(reps)]
-
-    timed_loop(decodes, reps=1)  # warm up
+    _timed_loop(dev, decodes, reps=1)  # warm up
     # the headline: round-robin the distinct batches
-    times = timed_loop([decodes[i % variants] for i in range(iters)])
-    rates = sorted(base.size * iters / t / 1e9 for t in times)
-    gbps = rates[len(rates) // 2]  # median
-    spread_pct = 100.0 * (rates[-1] - rates[0]) / gbps if gbps else 0.0
+    times = _timed_loop(dev, [decodes[i % variants] for i in range(iters)])
+    gbps, n, spread_pct, rates = _rates(base.size * iters, times)
     # diagnostic: the same input every call
-    dt_same = min(timed_loop([decodes[0]] * iters, reps=3))
+    dt_same = min(_timed_loop(dev, [decodes[0]] * iters, reps=3))
     gbps_same = base.size * iters / dt_same / 1e9
-    print(f"per-rep GB/s (n={len(rates)}): "
+    print(f"per-rep GB/s (n={n}): "
           + " ".join(f"{r:.2f}" for r in rates)
           + f"  median={gbps:.2f} spread={spread_pct:.1f}%  "
           f"same-input={gbps_same:.2f}", file=sys.stderr)
@@ -103,4 +127,141 @@ def run_video(height: int, width: int, frames: int, iters: int,
         f"per-call ms (n={len(lat)}): min={lat[0]:.3f} "
         f"p50={lat[len(lat)//2]:.3f} max={lat[-1]:.3f}",
         file=sys.stderr)
-    return gbps, len(rates), spread_pct
+    return gbps, n, spread_pct
+
+
+def _time_mhvt(dev, sets, nbytes: int, iters: int, label: str, *,
+               keyint: int, cinfo, height: int, width: int):
+    """Time the MHVT decode over staged sets -> (median GB/s, repetitions,
+    spread in percent).
+
+    ``sets``: one (true frames, staged residual planes, motion vectors or
+    None) per rotation. The timed call is B1 on the staged planes
+    (``decode_shared_step``) and ``temporal.fold_planes`` on its fresh
+    output; each rotation's first call is checked equal to its frames.
+    ``nbytes`` is the true frames' bytes of one call.
+    """
+    from .models import frame_stream, temporal
+    from .models.config import CodecConfig
+
+    cfg = CodecConfig()
+
+    def make(prep, mvs, fold):
+        def call():
+            planes = frame_stream.decode_shared_step(prep, cfg)
+            if fold:
+                return temporal.fold_planes(planes, keyint, mvs, None, cinfo)
+            return planes
+        return call
+
+    decodes = [make(p, mv, True) for _, p, mv in sets]
+    plains = [make(p, mv, False) for _, p, mv in sets]
+    for v, ((want, _, _), d) in enumerate(zip(sets, decodes)):
+        out = d().cpu().numpy()
+        if out.shape != want.shape or not np.array_equal(out, want):
+            raise ValueError(f"temporal[{label}] decode mismatch on variant "
+                             f"{v}")
+    _timed_loop(dev, plains + decodes, reps=1)  # warm up
+    n_sets = len(sets)
+    times = _timed_loop(dev, [decodes[i % n_sets] for i in range(iters)])
+    gbps, n, spread, rates = _rates(nbytes * iters, times)
+    plain_gbps = _rates(nbytes * iters, _timed_loop(
+        dev, [plains[i % n_sets] for i in range(iters)], reps=3))[0]
+    print(f"per-rep GB/s (n={n}): " + " ".join(f"{r:.2f}" for r in rates)
+          + f"  median={gbps:.2f} spread={spread:.1f}%", file=sys.stderr)
+    print(f"frame={height}x{width} keyint={keyint} inner={label} "
+          f"variants={n_sets}\nMHVT[{label}] decode+fold={gbps:.2f} GB/s  "
+          f"plane decode={plain_gbps:.2f} GB/s  fold cost="
+          f"{plain_gbps / gbps:.2f}x", file=sys.stderr)
+    return gbps, n, spread
+
+
+def run_temporal(height: int, width: int, frames: int, iters: int,
+                 content: str = "synthetic", variants: int = VARIANTS,
+                 keyint: int = 8, device="cuda"):
+    """Temporal (MHVT) decode GB/s of gray frames: B1 on the residual
+    stream, then the group fold on the device -> ``(median GB/s,
+    repetitions, spread in percent)``.
+
+    The residuals of one clip are rotated in frame order (``variants``
+    distinct staged streams under one table); each rotation must fold to
+    the host fold of its residuals, and rotation 0 to the frames. Raises
+    ValueError when one does not.
+    """
+    import torch
+
+    from .models import frame_stream, temporal
+
+    dev = torch.device(device)
+    base = _frames(content, height, width, frames)
+    res = temporal.temporal_encode(base, keyint)
+    sets = []
+    for v in range(max(1, min(variants, frames))):
+        b = np.roll(res, v, axis=0)
+        want = temporal.temporal_decode(b, keyint)
+        if v == 0 and not np.array_equal(want, base):
+            raise ValueError("variant 0 does not reconstruct the source")
+        stream = frame_stream.encode_frames_shared(b)
+        sets.append((want, frame_stream.prepare_shared(
+            stream, frames, height, width, device=dev), None))
+    return _time_mhvt(dev, sets, base.nbytes, iters, "gray", keyint=keyint,
+                      cinfo=None, height=height, width=width)
+
+
+def run_temporal_ext(height: int, width: int, frames: int, iters: int,
+                     content: str = "synthetic", variants: int = VARIANTS,
+                     keyint: int = 8, motion: bool = False,
+                     inner: str = "gray", device="cuda"):
+    """Temporal (MHVT) decode GB/s of the other fold chains -> ``(median
+    GB/s, repetitions, spread in percent)``.
+
+    - ``motion``: the motion-compensated fold (per-frame global vectors
+      estimated on the host);
+    - ``inner="color"``: three correlated channels (column-shifted copies of
+      the gray frames) as planes, folded into (T, H, W, 3) frames, then the
+      group or MC fold;
+    - ``inner="u16"``: depth-like u16 frames as hi/lo planes, interleaved
+      into (T, H, W) uint16, then the fold (the lo-to-hi carry).
+
+    Each of ``variants`` frame-order rotations is encoded and staged on its
+    own and must decode to its frames; the rate counts the true frames'
+    bytes. Raises ValueError when a rotation decodes wrong.
+    """
+    import torch
+
+    from .models import color, frame_stream, temporal
+
+    dev = torch.device(device)
+    gray = _frames(content, height, width, frames)
+    if inner == "color":
+        base = np.stack([np.roll(gray, 3 * c, axis=2) for c in range(3)],
+                        axis=-1)
+        cinfo = (3, color.KIND_U8, color.CS_IDENTITY)
+    elif inner == "u16":
+        base = ((gray.astype(np.uint16) << 4) | (gray >> 4)).astype(np.uint16)
+        cinfo = (2, color.KIND_U16, color.CS_IDENTITY)
+    elif inner == "gray":
+        base, cinfo = gray, None
+    else:
+        raise ValueError(f"unknown inner {inner!r}: gray, color or u16")
+    sets = []
+    for v in range(max(1, min(variants, frames))):
+        fr = np.roll(base, v, axis=0)
+        if motion:
+            res, mvs = temporal.temporal_encode_mc(fr, keyint)
+        else:
+            res, mvs = temporal.temporal_encode(fr, keyint), None
+        if inner == "color":
+            planes = res.transpose(0, 3, 1, 2).reshape(-1, height, width)
+        elif inner == "u16":
+            planes = np.stack([(res >> 8).astype(np.uint8),
+                               (res & 0xFF).astype(np.uint8)],
+                              axis=1).reshape(-1, height, width)
+        else:
+            planes = res
+        stream = frame_stream.encode_frames_shared(planes)
+        sets.append((fr, frame_stream.prepare_shared(
+            stream, planes.shape[0], height, width, device=dev), mvs))
+    label = inner + ("+mc" if motion else "")
+    return _time_mhvt(dev, sets, base.nbytes, iters, label, keyint=keyint,
+                      cinfo=cinfo, height=height, width=width)

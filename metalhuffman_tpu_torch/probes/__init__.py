@@ -22,10 +22,10 @@ from __future__ import annotations
 import subprocess
 
 
-def card() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+def card(index: int = 0) -> str:
+    """Card ``index``'s name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return smi.stdout.strip()
 

@@ -22,8 +22,14 @@ sys.path.insert(0, str(ROOT))
 import bench  # noqa: E402
 import chip_smoke  # noqa: E402
 
+#: the twins of the examples and scripts, beside their originals
+TWINS = [ROOT / p for p in (
+    "examples/quickstart_torch.py", "examples/video_pipeline_torch.py",
+    "examples/color_pipeline_torch.py", "examples/multihost_decode_torch.py",
+    "examples/scaling_report_torch.py", "scripts/perf_matrix_torch.py",
+    "scripts/streaming_gate_torch.py")]
 PORT_FILES = sorted((ROOT / "metalhuffman_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", *TWINS]
 
 
 def test_port_imports_and_decodes_without_jax():
@@ -136,6 +142,52 @@ def test_cli_decodes_on_cuda_by_default(monkeypatch, tmp_path):
     assert not out.exists() and not calls
 
 
+def test_twins_run_without_jax():
+    # every twin imports the port at module level, so --help reaches it
+    code = """
+import runpy, sys
+sys.modules['jax'] = None
+sys.modules['metalhuffman_tpu'] = None
+path = sys.argv[1]
+sys.argv = [path, '--help']
+try:
+    runpy.run_path(path, run_name='__main__')
+finally:
+    assert 'metalhuffman_tpu_torch' in sys.modules
+    assert not any(m == 'jax' or m.startswith(('jax.', 'metalhuffman_tpu.'))
+                   or m == 'metalhuffman_tpu' or m == 'bench'
+                   for m in sys.modules if sys.modules[m] is not None)
+"""
+    assert sorted(p.name for p in TWINS) == sorted(
+        p.name for d in ("examples", "scripts")
+        for p in (ROOT / d).glob("*_torch.py"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(path)],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for path in TWINS]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for path, p, (out, err) in zip(TWINS, procs, outs):
+        assert p.returncode == 0, f"{path.name}: {err}"
+        assert "--device" in out, path.name
+
+
+def test_chip_smoke_phase_j_names_every_twin():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "def phase_j(" in src and "phase_j(device)" in src
+    assert {str(p.relative_to(ROOT)) for p in TWINS} == {
+        path for path, _ in chip_smoke.J_TWINS.values()}
+    # the launch expectation of phase J: the examples' 13 B1 and 1 B2, and
+    # the perf matrix's 10 rows (5 of run_video, 5 of the MHVT decode)
+    got = chip_smoke.j_expected({"frames": 1, "iters": 1, "variants": 2})
+    assert got == chip_smoke.expect(decode_images=133, decode_blocks=1)
+
+
 def test_guard_glob_covers_the_cli_modules():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"metalhuffman_tpu_torch/{m}.py" for m in (
@@ -151,6 +203,7 @@ def test_no_jax_and_no_module_level_triton(path):
     assert not re.search(r"^(import|from)\s+triton\b", src, re.M)
     assert not re.search(
         r"^\s*(import|from)\s+metalhuffman_tpu\b(?!_torch)", src, re.M)
+    assert not re.search(r"^\s*(import|from)\s+bench\b", src, re.M)
     assert not re.search(r"\bimport_module\(|__import__\(", src)
 
 
