@@ -132,21 +132,53 @@ Phases (any failure exits nonzero and prints no result):
    ``decode_frame``, the checked decode, ``encode_video_best`` with motion,
    a 256x256 region of frames 2-5 on B2), ``color_pipeline_torch`` (the
    photo as a color image, a 4-frame color video and a frame of it, a
-   gray16 depth map), each decoded array held equal to its source again
-   here; ``perf_matrix_torch`` at full geometry with ``--frames 8 --iters
+   gray16 depth map), ``streaming_pipeline_torch`` (24 panned 2048x1536
+   photo frames through ``StreamingEncoder``, their streamed decode, a
+   sub-green color capture, streamed MHVT serving and a resumed MHVT
+   capture whose open keyframe group decodes on the card), each decoded
+   array held equal to its source again here; ``video_pipeline_torch``
+   also extracts frames 1-5 and splices them before the clip;
+   ``perf_matrix_torch`` at full geometry with ``--frames 8 --iters
    10 --variants 2`` (B1 at 2048x1536 and 1920x1080, synthetic and photo,
    delta2d, and the MHVT decode with the gray, motion, color, u16 and
    color-with-motion folds), its table printed; ``scaling_report_torch``
    at world 1 (one NCCL rank, started as a subprocess by the report). In
    subprocesses: ``multihost_decode_torch`` as one NCCL rank, and
    ``streaming_gate_torch`` at its defaults (each CLI command a process of
-   its own). One ``phase J`` JSON line holds each twin's host-clock
-   seconds, the perf matrix's rows and the launches; the subprocesses'
-   launches are not counted.
+   its own: its eight stages write every container with ``encode-video
+   --streaming``, then ``resegment`` and ``--append``). One ``phase J``
+   JSON line holds each twin's host-clock seconds, the perf matrix's rows
+   and the launches; the subprocesses' launches are not counted.
+12. Phase K, the streaming writers, in-place append and container surgery
+   (``models.stream_writer``, ``models.surgery``) at 2048x1536. K1: F1's
+   150 photo frames pushed 7 at a time into ``StreamingEncoder`` (FCRC,
+   segments [136, 14]) equal ``write_segmented(encode_frames_segmented(
+   ...))`` byte for byte; ``decode_video`` and the checked segmented
+   decode (B1) equal the frames; a capture of frames 0-136 closed and
+   appended with 136-150 equals the one-shot file; 30 frames at 16x16
+   stream and decode on B2. K2: G2's 30 frames as motion-compensated MHVT
+   (keyint 8, FCRC, segments of 15): a capture of 0-15 appended with 15-30
+   (its open keyframe group 8-15 decoded by B1 and folded on the card)
+   equals the one-shot capture, and ``decode_temporal_video`` equals the
+   frames. K3, on K1's and K2's files: ``extract_video`` 40-110 (no
+   decode; its combined CRC equals ``zlib.crc32`` of the frames) and
+   120-150 (across the segments); the MHVT extract 11-27, whose start re-
+   keys frames 11-15 on the card (``info["reencoded_frames"] == 5``);
+   ``concat_videos`` of the MHV2 extract and a 20-frame MHTV equal to
+   ``concat_videos_streamed``; ``resegment_video_streamed`` of K1 at 16
+   frames a segment through the checked decode. K4: G3's sub-green
+   30x1080x1920x3 into ``ColorStreamingEncoder`` and F3's 30-table clip into
+   ``MHTSStreamingEncoder``, 4 frames a push. Every output decodes on the
+   card to its source. Then B1 against its plain version on K2's segment 0
+   and B2 on the 16x16 stream (not counted). Its times, on the host's
+   clock, median of 3: each streamed encode against the batch writer of
+   the same frames, each append (the MHVT append's open-group decode and
+   fold apart, with CUDA events), each surgery call; one ``phase K`` JSON
+   line holds them with the launches.
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
-   F, G, H, I and J and must match the decodes, encodes and probes each
+   F, G, H, I, J and K and must match the decodes, encodes and probes each
    made.
-12. Times, with CUDA events over distinct staged inputs: B1 with and without
+13. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -170,8 +202,8 @@ Phases (any failure exits nonzero and prints no result):
    folds' gather-rolls and adds apart.
 
 The last two lines are a JSON object describing the kernels and the result
-line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I`` and
-``phase J`` lines come before them.
+line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I``,
+``phase J`` and ``phase K`` lines come before them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -2353,6 +2385,7 @@ J_TWINS = {
     "quickstart": ("examples/quickstart_torch.py", []),
     "video_pipeline": ("examples/video_pipeline_torch.py", []),
     "color_pipeline": ("examples/color_pipeline_torch.py", []),
+    "streaming_pipeline": ("examples/streaming_pipeline_torch.py", []),
     "perf_matrix": ("scripts/perf_matrix_torch.py",
                     ["--frames", 8, "--iters", 10, "--variants", 2]),
     "scaling_report": ("examples/scaling_report_torch.py", ["--world", 1]),
@@ -2402,10 +2435,13 @@ def run_twin_process(label: str, device, times: dict, extra=()) -> str:
 
 def j_expected(perf_args: dict) -> dict:
     """Phase J's launches in this process. The examples: quickstart B1 3
-    (decode_image, decode_step, decode_video); video_pipeline B1 6
+    (decode_image, decode_step, decode_video); video_pipeline B1 9
     (decode_video, the streaming decoder, decode_frame, the checked decode,
-    the temporal decode_video and frame) and B2 1 (the region);
-    color_pipeline B1 4 (image, video, frame, gray16). The perf matrix: 5
+    the temporal decode_video and frame, the extract's MHTV and the
+    concat's two segments) and B2 1 (the region); color_pipeline B1 4
+    (image, video, frame, gray16); streaming_pipeline B1 14 (4 MHV2
+    segments, the color video's 2, 3 temporal chunks, the append's open
+    keyframe group, the resumed capture's 4 segments). The perf matrix: 5
     ``run_video`` rows, each its rotations checked, a warm-up round,
     ``bench.REPS`` timed and 3 same-input repetitions of ``iters`` calls
     and 3 latencies per rotation; 5 MHVT rows, each its rotations checked,
@@ -2417,7 +2453,7 @@ def j_expected(perf_args: dict) -> dict:
     iters = perf_args["iters"]
     video = v + v + bench.REPS * iters + 3 * iters + 3 * v
     mhvt = v + 2 * v + bench.REPS * iters + 3 * iters
-    return expect(decode_images=3 + 6 + 4 + 5 * video + 5 * mhvt,
+    return expect(decode_images=3 + 9 + 4 + 14 + 5 * video + 5 * mhvt,
                   decode_blocks=1)
 
 
@@ -2428,7 +2464,8 @@ def phase_j(device) -> tuple[dict, dict, list, dict]:
     rows; the scaling report's numbers at world 1)."""
     times: dict = {}
     reset_launches()
-    for label in ("quickstart", "video_pipeline", "color_pipeline"):
+    for label in ("quickstart", "video_pipeline", "color_pipeline",
+                  "streaming_pipeline"):
         out = run_twin(label, device, times)
         for name, (got, want) in out["decoded"].items():
             check(got.shape == want.shape and got.dtype == want.dtype
@@ -2461,6 +2498,376 @@ def phase_j(device) -> tuple[dict, dict, list, dict]:
     check(out.strip().splitlines()[-1].startswith(
         "STREAMING GATE: ALL PASS"), "phase J streaming_gate: no ALL PASS")
     return counts, times, [list(r) for r in rows], report[0]
+
+
+K_CHUNK = 7  # phase K: frames per push of the 2048x1536 captures
+K_SPLIT = 136  # K1: frames captured before the append (segment 0 whole)
+K_SEGMENT = 15  # K2: frames per MHV2 segment of the MHVT capture
+K_RESEGMENT = 16  # K3: frames per segment of the resegmented K1 file
+K_EXTRACT = (40, 110)  # K3: the MHV2 extract, no decode
+K_EXTRACT_ACROSS = (120, 150)  # K3: an MHV2 extract across K1's segments
+K_MHVT_EXTRACT = (11, 27)  # K3: a mid-group start (its group is 8-15)
+K_CONCAT_TAIL = 20  # K3: frames of the MHTV spliced after the extract
+K_COLOR_CHUNK = 4  # K4: frames per push of the color and MHTS captures
+K_REPS = 3  # host-clock repetitions of each encode, append and surgery call
+
+
+def push_all(writer, frames, chunk: int):
+    """Push ``frames`` into the streaming ``writer`` ``chunk`` at a time and
+    close it -> its stats."""
+    with writer as enc:
+        for a in range(0, len(frames), chunk):
+            enc.push(frames[a : a + chunk])
+    return enc.stats
+
+
+def host_reps(label: str, fn, times: dict):
+    """``fn()`` K_REPS times on the host's clock, each ended by a device
+    synchronize; the median seconds go to ``times[label]`` -> the last
+    call's result."""
+    import torch
+
+    secs = []
+    for _ in range(K_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    secs.sort()
+    times[label] = secs[len(secs) // 2]
+    print(f"time phase K {label}: median {times[label]:.4f} s of {K_REPS} "
+          f"(min {secs[0]:.4f}, max {secs[-1]:.4f}), host clock")
+    return out
+
+
+class DecodeSpans:
+    """Times every call of the named module functions while active: CUDA
+    events on the current stream around each call (the device time of the
+    work it queued) and the host clock. Phase K wraps the temporal append's
+    ``frame_stream.decode_range`` and ``temporal.fold_planes`` with it to
+    split the append into the open group's decode and the encode."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.events: list = []
+        self.host_s = 0.0
+        self.saved: list = []
+
+    def __enter__(self):
+        import torch
+
+        self.events, self.host_s = [], 0.0
+
+        def timed_call(real):
+            def call(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = real(*a, **k)
+                end.record()
+                self.host_s += time.perf_counter() - t0
+                self.events.append((start, end))
+                return out
+            return call
+
+        for module, name in self.targets:
+            real = getattr(module, name)
+            self.saved.append((module, name, real))
+            setattr(module, name, timed_call(real))
+        return self
+
+    def __exit__(self, *exc):
+        while self.saved:
+            module, name, real = self.saved.pop()
+            setattr(module, name, real)
+
+    def device_ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def phase_k(device) -> tuple[dict, dict, dict]:
+    """The streaming writers, in-place append and container surgery at
+    2048x1536 (K1-K4, see the module docstring); returns (the launches
+    each kernel made, after checking them; the max absolute difference of
+    B1 and B2 from their plain versions on K's inputs, all 0; the
+    host-clock seconds of each encode, append and surgery call, the
+    appends' decode apart, and of the whole phase)."""
+    import tempfile
+
+    import torch
+
+    import metalhuffman_tpu_torch as mt
+    from metalhuffman_tpu_torch.models import color, surgery, temporal
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.models.stream_writer import (
+        ColorStreamingEncoder, MHTSStreamingEncoder, StreamingEncoder,
+        TemporalStreamingEncoder)
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    _t, h, w = FULL
+    times: dict = {}
+    expected = expect()
+    t_phase = time.perf_counter()
+    f1 = photo_frames(h, w, F1_FRAMES)
+    g2 = photo_frames(h, w, G_FRAMES)
+    f3 = contrast_frames(h, w, F3_FRAMES)
+    g3 = color_frames(*G_COLOR, G_FRAMES)
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_k_") as tmp:
+        tmp = Path(tmp)
+        # K1: the long gray capture, its batch twin, the append, 16x16
+        cfg1 = CodecConfig(frame_crcs=True)
+        k1 = tmp / "k1.mhv2"
+        stats = host_reps("K1 streamed encode", lambda: push_all(
+            StreamingEncoder(k1, h, w, cfg1, frame_crcs=True), f1, K_CHUNK),
+            times)
+        blob1 = k1.read_bytes()
+        batch = host_reps("K1 batch writer", lambda: fs.write_segmented(
+            fs.encode_frames_segmented(f1, cfg1), h, w, cfg1,
+            source_crc32=zlib.crc32(f1), frame_crcs=fs.compute_frame_crcs(
+                f1)), times)
+        check(blob1 == batch, "K1: the streamed file differs from "
+              "write_segmented(encode_frames_segmented(...))")
+        del batch
+        segs1, *_ = fs.read_segmented(blob1)
+        check([ft for _, ft in segs1] == [136, 14]
+              and (stats.total_frames, stats.num_segments) == (F1_FRAMES, 2),
+              f"K1: segments {[ft for _, ft in segs1]}, stats {stats}")
+        got = mt.decode_video(blob1, device)  # CRC-checked
+        expected["decode_images"] += 2
+        check(np.array_equal(got, f1), "K1 decode_video: frames differ")
+        del got
+        base = 0
+        for si, frames, err in fs.iter_frames_segmented_checked(
+                segs1, h, w, device=device):
+            check(not err.any() and np.array_equal(
+                frames, f1[base : base + len(frames)]),
+                f"K1 checked segment {si}: flagged or differs")
+            base += len(frames)
+        expected["decode_images"] += 2
+        cap = tmp / "k1_cap.mhv2"
+        push_all(StreamingEncoder(cap, h, w, cfg1, frame_crcs=True),
+                 f1[:K_SPLIT], K_CHUNK)
+        first = cap.read_bytes()
+
+        def append_k1():
+            cap.write_bytes(first)
+            return push_all(StreamingEncoder(cap, h, w, cfg1, append=True),
+                            f1[K_SPLIT:], K_CHUNK)
+
+        stats = host_reps("K1 append", append_k1, times)
+        check(cap.read_bytes() == blob1 and stats.total_frames == F1_FRAMES,
+              "K1: the append of frames 136-150 differs from the one-shot "
+              "capture")
+        print(f"phase K1 ok: {F1_FRAMES}x{h}x{w} pushed {K_CHUNK} at a time "
+              f"-> MHV2 [136, 14] ({len(blob1)} B) == write_segmented("
+              "encode_frames_segmented(...)); decode_video and the checked "
+              "segmented decode == the frames; capture 0-136 + append "
+              "136-150 == the one-shot file")
+        cfg16 = CodecConfig(block_dim=16)
+        k16 = tmp / "k16.mhv2"
+        f16 = f1[:G_FRAMES]
+        host_reps("K1 16x16 streamed encode", lambda: push_all(
+            StreamingEncoder(k16, h, w, cfg16), f16, K_CHUNK), times)
+        blob16 = k16.read_bytes()
+        batch = host_reps("K1 16x16 batch writer", lambda: fs.write_segmented(
+            fs.encode_frames_segmented(f16, cfg16), h, w, cfg16,
+            source_crc32=zlib.crc32(f16)), times)
+        check(blob16 == batch, "K1 16x16: the streamed file differs from "
+              "the batch writer's")
+        got = mt.decode_video(blob16, device)
+        expected["decode_blocks"] += 1
+        check(np.array_equal(got, f16), "K1 16x16 decode_video (B2)")
+        print(f"phase K1 ok: {G_FRAMES}x{h}x{w} 16x16 streamed MHV2 "
+              f"({len(blob16)} B) == the batch writer's, decoded on B2")
+
+        # K2: the resumed MHVT capture, its open group decoded on the card
+        cfg2 = CodecConfig(temporal=True, motion=True, keyint=G_KEYINT,
+                           frame_crcs=True)
+        k2 = tmp / "k2.mhvt"
+
+        def temporal_writer(path, append=False):
+            return TemporalStreamingEncoder(
+                path, h, w, cfg2, max_segment_frames=K_SEGMENT,
+                frame_crcs=not append, append=append, device=device)
+
+        host_reps("K2 streamed encode", lambda: push_all(
+            temporal_writer(k2), g2, K_CHUNK), times)
+        blob2 = k2.read_bytes()
+        host_reps("K2 batch encode_video", lambda: mt.encode_video(g2, cfg2),
+                  times)
+        cap2 = tmp / "k2_cap.mhvt"
+        push_all(temporal_writer(cap2), g2[:K_SEGMENT], K_CHUNK)
+        first2 = cap2.read_bytes()
+        splits = []
+
+        def append_k2():
+            cap2.write_bytes(first2)
+            spans = DecodeSpans([(fs, "decode_range"),
+                                 (temporal, "fold_planes")])
+            t0 = time.perf_counter()
+            with spans:
+                out = push_all(temporal_writer(cap2, append=True),
+                               g2[K_SEGMENT:], K_CHUNK)
+            total = time.perf_counter() - t0
+            splits.append((spans.device_ms(), spans.host_s,
+                           total - spans.host_s))
+            return out
+
+        host_reps("K2 append", append_k2, times)
+        expected["decode_images"] += K_REPS  # the open group, one segment
+        check(cap2.read_bytes() == blob2, "K2: capture 0-15 + append 15-30 "
+              "differs from the one-shot MHVT capture")
+        splits.sort()
+        dev_ms, dec_s, enc_s = splits[len(splits) // 2]
+        times["K2 append: open group decode, device ms"] = dev_ms
+        times["K2 append: open group decode, host s"] = dec_s
+        times["K2 append: the rest (encode, CRCs, writes), host s"] = enc_s
+        print(f"time phase K K2 append split (median by device time): the "
+              f"open group's decode and fold {dev_ms:.4f} ms on the card "
+              f"(CUDA events), {dec_s:.4f} s host; the rest {enc_s:.4f} s")
+        got = temporal.decode_temporal_video(blob2, device)
+        expected["decode_images"] += 2
+        check(np.array_equal(got, g2), "K2 decode_temporal_video")
+        print(f"phase K2 ok: MC MHVT {G_FRAMES}x{h}x{w}, keyint {G_KEYINT}, "
+              f"FCRC, segments of {K_SEGMENT}: capture 0-15 + append 15-30 "
+              f"(open group 8-15 decoded and folded on {device}) == the "
+              f"one-shot capture ({len(blob2)} B); decode_temporal_video == "
+              "the frames")
+
+        # K3: surgery on K1's and K2's files
+        a, b = K_EXTRACT
+        ext = host_reps("K3 extract MHV2 40-110",
+                        lambda: surgery.extract_video(blob1, a, b), times)
+        check(fs.source_crc32(ext) == zlib.crc32(f1[a:b]),
+              "K3 extract: the combined CRC differs from zlib.crc32")
+        got = mt.decode_video(ext, device)
+        expected["decode_images"] += 1
+        check(np.array_equal(got, f1[a:b]), "K3 extract 40-110")
+        a2, b2 = K_EXTRACT_ACROSS
+        ext2 = surgery.extract_video(blob1, a2, b2)
+        got = mt.decode_video(ext2, device)
+        expected["decode_images"] += 2
+        check(np.array_equal(got, f1[a2:b2]) and fs.source_crc32(ext2)
+              == zlib.crc32(f1[a2:b2]), "K3 extract 120-150")
+        info: dict = {}
+        ma, mb = K_MHVT_EXTRACT
+        mext = host_reps(
+            "K3 extract MHVT 11-27 (mid-group)",
+            lambda: surgery.extract_video(blob2, ma, mb, info, device=device),
+            times)
+        expected["decode_images"] += 2 * K_REPS  # planes 8-16: 2 segments
+        check(info == {"reencoded_frames": 5},
+              f"K3 MHVT extract: info {info}")
+        got = temporal.decode_temporal_video(mext, device)
+        expected["decode_images"] += 2
+        check(np.array_equal(got, g2[ma:mb]), "K3 MHVT extract 11-27")
+        tail = mt.encode_video(f3[:K_CONCAT_TAIL])
+        check(tail[:4] == fs.SHARED_MAGIC, "K3: the tail is no MHTV")
+        cat = host_reps("K3 concat_videos", lambda: surgery.concat_videos(
+            [ext, tail]), times)
+        pe, pt, pc = tmp / "ext.mhtv", tmp / "tail.mhtv", tmp / "cat.mhv2"
+        pe.write_bytes(ext)
+        pt.write_bytes(tail)
+        host_reps("K3 concat_videos_streamed",
+                  lambda: surgery.concat_videos_streamed([pe, pt], pc), times)
+        check(pc.read_bytes() == cat, "K3: concat_videos_streamed differs "
+              "from concat_videos")
+        got = mt.decode_video(cat, device)
+        expected["decode_images"] += 2
+        check(np.array_equal(got, np.concatenate([f1[a:b],
+                                                  f3[:K_CONCAT_TAIL]])),
+              "K3 concat")
+        pr = tmp / "k1_reseg.mhv2"
+        host_reps("K3 resegment_video_streamed",
+                  lambda: surgery.resegment_video_streamed(k1, pr,
+                                                           K_RESEGMENT),
+                  times)
+        rblob = pr.read_bytes()
+        rsegs, *_ = fs.read_segmented(rblob)
+        check([ft for _, ft in rsegs] == [16] * 8 + [8, 14]
+              and fs.source_crc32(rblob) == fs.source_crc32(blob1)
+              and np.array_equal(fs.read_frame_crcs(rblob),
+                                 fs.read_frame_crcs(blob1)),
+              f"K3 resegment: segments {[ft for _, ft in rsegs]}")
+        got = fs.decode_frames_segmented(rsegs, h, w, CodecConfig(),
+                                         check=True, device=device)
+        expected["decode_images"] += len(rsegs)
+        check(np.array_equal(got, f1), "K3 resegmented: checked decode")
+        del got, rblob
+        print(f"phase K3 ok: extract 40-110 (CRC combined == zlib.crc32) and "
+              f"120-150 of K1, MHVT extract 11-27 ({info}), concat with a "
+              f"{K_CONCAT_TAIL}-frame MHTV == its streamed form, resegment "
+              f"of K1 at {K_RESEGMENT} (10 segments, checked decode): all "
+              "decode on the card to their sources")
+
+        # K4: color and MHTS captures
+        k4c = tmp / "k4.mhtc"
+        host_reps("K4 sub-green streamed encode", lambda: push_all(
+            ColorStreamingEncoder(k4c, *G_COLOR, channels=3,
+                                  colorspace=color.CS_SUBGREEN), g3,
+            K_COLOR_CHUNK), times)
+        host_reps("K4 sub-green batch writer",
+                  lambda: color.encode_color_video_to_bytes(
+                      g3, colorspace=color.CS_SUBGREEN), times)
+        got = color.decode_color_video_from_bytes(k4c.read_bytes(), device)
+        expected["decode_images"] += 1
+        check(np.array_equal(got, g3), "K4 sub-green: decode differs")
+        k4s = tmp / "k4.mhts"
+        host_reps("K4 MHTS streamed encode", lambda: push_all(
+            MHTSStreamingEncoder(k4s, h, w), f3, K_COLOR_CHUNK), times)
+        batch = host_reps("K4 MHTS batch writer", lambda: fs.write_stream(
+            fs.encode_frames(f3), h, w,
+            source_crc32s=[zlib.crc32(f) for f in f3]), times)
+        blob4 = k4s.read_bytes()
+        check(blob4 == batch, "K4 MHTS: the streamed file differs from "
+              "write_stream(encode_frames(...))")
+        got, *_ = fs.decode_range(blob4, 0, F3_FRAMES, device=device)
+        expected["decode_images"] += F3_FRAMES
+        check(np.array_equal(got, f3), "K4 MHTS: decode differs")
+        print(f"phase K4 ok: sub-green {G_FRAMES}x{G_COLOR[0]}x{G_COLOR[1]}"
+              f"x3 and the {F3_FRAMES}-table MHTS pushed {K_COLOR_CHUNK} at a "
+              "time decode on the card to their sources; the MHTS file == "
+              "write_stream(encode_frames(...))")
+        counts = read_launches()
+        check(counts == expected,
+              f"phase K: kernel launches {counts}, expected {expected}")
+        print(f"phase K launches: {counts}")
+
+        # each kernel against its plain version on K's inputs (not counted)
+        worst = {"decode_images": 0, "decode_blocks": 0}
+        inner, *_ = temporal.unwrap(blob2)
+        seg0, ft0 = fs.read_segmented(inner)[0][0]
+        prep = fs.prepare_shared(seg0, ft0, h, w, CodecConfig(),
+                                 device=device)
+        for emit_end in (False, True):
+            err = b1_against_plain(prep, CodecConfig(), emit_end)
+            worst["decode_images"] = max(worst["decode_images"], err)
+            check(err == 0, f"K2 segment 0: B1 (emit_end={emit_end}) "
+                  f"differs from plain by {err}")
+        stream16, t16 = fs.read_segmented(blob16)[0][0]
+        prep = fs.prepare_shared(stream16, t16, h, w, cfg16, device=device)
+        args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+        geo = dict(num_steps=256, delta=True, emit_end=True)
+        out, end = decode_cuda.decode_blocks(*args, **geo, table=prep.table)
+        pout, pend = decode_cuda.decode_blocks_plain(*args, **geo)
+        err = max(int((out.int() - pout.int()).abs().max()),
+                  int((end - pend).abs().max()))
+        worst["decode_blocks"] = err
+        check(err == 0, f"K1 16x16: B2 differs from plain by {err}")
+        del prep, out, pout
+        torch.cuda.empty_cache()
+        print("phase K ok: B1 == plain on K2's segment 0 (with and without "
+              "end bits), B2 == plain on the 16x16 stream (bytes and end "
+              "bits)")
+    times["phase K, whole"] = time.perf_counter() - t_phase
+    return counts, worst, times
 
 
 def timed(label: str, fn, inputs, card: str, nbytes: int,
@@ -3207,6 +3614,9 @@ def main(argv: list[str]) -> int:
     j_counts, j_times, j_rows, j_scaling = phase_j(device)
     for name, count in j_counts.items():
         launches[name] += count
+    k_counts, k_errs, k_times = phase_k(device)
+    for name, count in k_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -3217,9 +3627,9 @@ def main(argv: list[str]) -> int:
     temporal_timings(device, card, g_blobs)
     del g_blobs
     max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"],
-                  h_errs["decode_images"])
+                  h_errs["decode_images"], k_errs["decode_images"])
     b2_err = max(b2_err, f_errs["decode_blocks"], g_errs["decode_blocks"],
-                 h_errs["decode_blocks"])
+                 h_errs["decode_blocks"], k_errs["decode_blocks"])
     errs.update(decode_images=max_err, decode_blocks=b2_err,
                 encode_stream=max(stream_err, h_errs["encode_stream"]),
                 encode_rows=max(b3_err, h_errs["encode_rows"]))
@@ -3233,6 +3643,8 @@ def main(argv: list[str]) -> int:
     print("phase J " + json.dumps({"card": card, "launches": j_counts,
                                    "s": j_times, "perf_matrix": j_rows,
                                    "scaling_report": j_scaling}))
+    print("phase K " + json.dumps({"card": card, "launches": k_counts,
+                                   "s": k_times}))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

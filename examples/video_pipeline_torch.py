@@ -1,6 +1,6 @@
 """Video workflow of the PyTorch / CUDA port end to end: encode ->
-stream-decode -> random access -> verify (counterpart of
-``examples/video_pipeline.py``, steps 1-8).
+stream-decode -> random access -> verify -> surgery (counterpart of
+``examples/video_pipeline.py``).
 
     python examples/video_pipeline_torch.py                 # on the card
     python examples/video_pipeline_torch.py --device cpu    # plain versions
@@ -8,9 +8,9 @@ stream-decode -> random access -> verify (counterpart of
 Walks the video surface: shared-table batch encode with the delta2d
 precoder, the streaming decoder, temporal random access (one frame's blocks
 only), the end-bit integrity check, temporal prediction with motion
-compensation, and a spatio-temporal region. Step 9, container surgery,
-rests on the JAX package's host-only ``models/surgery.py`` and is not
-ported. Exits nonzero when a decoded array differs from its source.
+compensation, a spatio-temporal region, and lossless container surgery
+(extract and concat, no re-encode). Exits nonzero when a decoded array
+differs from its source.
 """
 
 from __future__ import annotations
@@ -23,13 +23,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np  # noqa: E402
 
 import metalhuffman_tpu_torch as mt  # noqa: E402
-from metalhuffman_tpu_torch.models import frame_stream, temporal  # noqa: E402
+from metalhuffman_tpu_torch.models import (  # noqa: E402
+    frame_stream, surgery, temporal)
 from metalhuffman_tpu_torch.models.config import CodecConfig  # noqa: E402
 from metalhuffman_tpu_torch.utils import examples, fixtures  # noqa: E402
 
 
 def main(argv=None) -> dict:
-    """Run steps 1-8 -> {"blobs": name -> container bytes, "decoded": name ->
+    """Run steps 1-9 -> {"blobs": name -> container bytes, "decoded": name ->
     (decoded array, its source)}; raises ValueError on a mismatch."""
     args = examples.parser(__doc__.splitlines()[0]).parse_args(argv)
     dev = args.device
@@ -100,13 +101,19 @@ def main(argv=None) -> dict:
                   frames[2:5, 512:768, 512:768], decoded)
     print("spatio-temporal ROI: bit-exact (region blocks only)")
 
-    # 9. container surgery (extract + concat) is not ported: it rests on
-    #    the JAX package's host-only models/surgery.py
-    print("surgery: not ported (models/surgery.py is host-only in the JAX "
-          "package; the port decodes what it writes)")
+    # 9. lossless container surgery: cut frames [1, 5) and splice, with no
+    #    re-encode; the CRCs combine algebraically
+    part = surgery.extract_video(blob, 1, 5)
+    examples.same("decode_video extract", mt.decode_video(part, dev),
+                  frames[1:5], decoded)
+    joined = surgery.concat_videos([part, blob])
+    examples.same("decode_video concat", mt.decode_video(joined, dev),
+                  np.concatenate([frames[1:5], frames]), decoded)
+    print(f"surgery: extract+concat bit-exact, zero re-encode "
+          f"({len(part)} + {len(blob)} -> {len(joined)} bytes)")
     print("video pipeline OK")
-    return {"blobs": {"video": blob, "temporal": tblob}, "decoded": decoded,
-            "kind": kind}
+    return {"blobs": {"video": blob, "temporal": tblob, "extract": part,
+                      "concat": joined}, "decoded": decoded, "kind": kind}
 
 
 if __name__ == "__main__":

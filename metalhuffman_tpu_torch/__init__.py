@@ -23,6 +23,12 @@ use). It imports no JAX and nothing of the JAX package.
 - ``models.temporal``: temporal video (MHVT): inter-frame residuals, with
   or without global motion compensation, folded on the device after the
   decode.
+- ``models.stream_writer``: the streaming writers (MHV2, MHTC, MHVT, MHTS
+  written as frames are pushed, at the memory of one segment) and their
+  in-place append; ``models.surgery``: lossless extract, concat and
+  resegment, with the CRCs combined by ``core.crc``. Host work, but for
+  the temporal append's open keyframe group and an MHVT extract that
+  starts inside a keyframe group, which decode on the caller's device.
 - ``parallel``: multi-GPU decode and encode over ``torch.distributed``
   (NCCL for CUDA tensors, gloo for CPU tensors): each rank runs the kernels
   on its contiguous block range, and one gather puts the ranges in stream

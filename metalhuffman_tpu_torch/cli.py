@@ -1,5 +1,6 @@
 """Command-line interface of the PyTorch / CUDA port: encode / decode /
-roundtrip / encode-video / decode-video / info / verify / inspect / bench.
+roundtrip / encode-video / decode-video / extract / concat / resegment /
+info / verify / inspect / bench.
 
 Counterpart of ``metalhuffman_tpu/cli.py``, with ``--device`` (default
 ``cuda``; also ``cuda:N`` or ``cpu``) in place of ``--backend`` and
@@ -14,10 +15,15 @@ MHVT.
     python -m metalhuffman_tpu_torch roundtrip photo.png --device cpu
     python -m metalhuffman_tpu_torch info out.mht
     python -m metalhuffman_tpu_torch bench --height 1536 --width 2048
+    python -m metalhuffman_tpu_torch encode-video clip.npy cap.mhv2 --streaming
+    python -m metalhuffman_tpu_torch extract cap.mhv2 cut.mhv2 --frames 10 20
 
-The JAX CLI's ``encode-video --streaming/--append/--segment-frames``,
-``extract``, ``concat`` and ``resegment`` rest on its host-only streaming
-writer and container surgery and are not offered here.
+``encode-video --streaming`` writes through the streaming writers
+(``models.stream_writer``) at constant memory and ``--append`` resumes such
+a file in place; ``extract``, ``concat`` and ``resegment`` are lossless
+container surgery (``models.surgery``). Both are host work but for two
+decodes, which run on ``--device``: the temporal append's open keyframe
+group and an MHVT extract that starts inside a keyframe group.
 """
 
 from __future__ import annotations
@@ -335,9 +341,195 @@ def _pick_best_precoder(frames: np.ndarray, cfg):
     return best
 
 
+def _cmd_encode_video_streaming(args) -> int:
+    """encode-video --streaming: memory-bounded push-frame encode.
+
+    The input is consumed incrementally (an .npy stack is memory-mapped, a
+    directory is loaded one image at a time) and segments are written as
+    soon as their frames are buffered — peak memory is one segment of raw
+    frames, independent of video length. Grayscale writes MHV2 directly;
+    --color/--gray16 write MHTC wrapping a streamed inner MHV2 (the MHTC
+    header is fixed-size, so it composes). Output is always (inner) MHV2 —
+    the segment count is only known at the end; every decode surface
+    treats a 1-segment MHV2 exactly like MHTV. Only a temporal --append
+    decodes (the open keyframe group, on --device).
+    """
+    from .models import color as color_mod
+    from .models.stream_writer import (ColorStreamingEncoder,
+                                       MHTSStreamingEncoder,
+                                       StreamingEncoder,
+                                       TemporalStreamingEncoder)
+    from .utils import imageio
+
+    for flag, what in [("best", "--best"), ("best_fast", "--best-fast")]:
+        if getattr(args, flag):
+            raise SystemExit(
+                f"--streaming writes containers incrementally; "
+                f"{what} needs the full sequence in memory — drop one")
+    appending = args.append
+    if appending and not Path(args.output).exists():
+        raise SystemExit(
+            f"--append resumes an existing container, but {args.output} "
+            "does not exist (drop --append for a fresh capture)")
+    if args.motion and not args.temporal:
+        raise SystemExit("--motion requires --temporal")
+    is_color = args.color
+    is_u16 = args.gray16
+    mhts = args.per_frame_tables
+    if is_color and is_u16:
+        raise SystemExit("--gray16 and --color are mutually exclusive")
+    if mhts:
+        if args.temporal:
+            raise SystemExit(
+                "--temporal writes a shared-table MHVT container; drop "
+                "--per-frame-tables")
+        if is_color or is_u16:
+            raise SystemExit(
+                "--per-frame-tables applies to grayscale MHTS output only "
+                "(MHTC planes share one canonical table)")
+        if args.segment_frames is not None:
+            raise SystemExit(
+                "MHTS has no segments (every frame is self-contained); "
+                "drop --segment-frames")
+    if args.segment_frames is not None and args.segment_frames < 1:
+        raise SystemExit("--segment-frames must be >= 1")
+    if args.subgreen and not is_color:
+        raise SystemExit("--subgreen needs --color")
+    cfg = _config(args)
+    t0 = time.perf_counter()
+    p = Path(args.input)
+
+    def make(h, w, channels=None, u16=False, colorspace=None):
+        """The writer for this geometry/kind: MHTS when --per-frame-tables,
+        MHVT (trailer layout) when --temporal, else the bare MHV2/MHTC
+        writer."""
+        if mhts:
+            return MHTSStreamingEncoder(args.output, h, w, cfg,
+                                        append=appending)
+        if cfg.temporal:
+            return TemporalStreamingEncoder(
+                args.output, h, w, cfg, channels=channels, u16=u16,
+                colorspace=colorspace,
+                max_segment_frames=args.segment_frames,
+                frame_crcs=cfg.frame_crcs, append=appending,
+                device=args.device)
+        if u16:
+            return ColorStreamingEncoder(
+                args.output, h, w, u16=True, config=cfg,
+                max_segment_frames=args.segment_frames,
+                frame_crcs=cfg.frame_crcs, append=appending)
+        if channels is not None:
+            return ColorStreamingEncoder(
+                args.output, h, w, channels=channels, config=cfg,
+                colorspace=colorspace,
+                max_segment_frames=args.segment_frames,
+                frame_crcs=cfg.frame_crcs, append=appending)
+        return StreamingEncoder(
+            args.output, h, w, cfg,
+            max_segment_frames=args.segment_frames,
+            frame_crcs=cfg.frame_crcs, append=appending)
+
+    def drive(make_enc, chunks, first=None):
+        try:
+            with make_enc() as enc:
+                if first is not None:
+                    enc.push(first)
+                for c in chunks:
+                    enc.push(c)
+        except ValueError as e:
+            # writer validation (append mismatches, geometry, torn
+            # inputs) becomes a clean CLI message, not a traceback
+            raise SystemExit(str(e))
+        return enc.stats
+
+    if is_u16:
+        if p.is_dir():
+            raise SystemExit(
+                "--gray16 video input must be a (T, H, W) uint16 .npy stack")
+        frames = np.load(p, mmap_mode="r")
+        if frames.ndim != 3 or frames.dtype != np.uint16:
+            raise SystemExit(
+                "--gray16 video input must be a (T, H, W) uint16 .npy stack")
+        t, h, w = frames.shape
+        stats = drive(
+            lambda: make(h, w, u16=True),
+            (np.ascontiguousarray(frames[a : a + 16])
+             for a in range(0, t, 16)))
+        kind, bpp = "MHTC[u16", 2
+    elif is_color:
+        cs = (color_mod.CS_SUBGREEN if args.subgreen
+              else color_mod.CS_IDENTITY)
+        if p.is_dir():
+            files = sorted(
+                f for f in p.iterdir()
+                if f.suffix.lower() in (".png", ".jpg", ".jpeg", ".tga"))
+            if not files:
+                raise SystemExit(f"no image files in {args.input}")
+            first = imageio.load_color(files[0])
+            h, w, ch = first.shape
+            stats = drive(
+                lambda: make(h, w, channels=ch, colorspace=cs),
+                (imageio.load_color(f) for f in files[1:]), first=first)
+        else:
+            frames = np.load(p, mmap_mode="r")
+            if frames.ndim != 4 or frames.dtype != np.uint8:
+                raise SystemExit(
+                    ".npy input must be a (T, H, W, C) uint8 array")
+            t, h, w, ch = frames.shape
+            stats = drive(
+                lambda: make(h, w, channels=ch, colorspace=cs),
+                (np.ascontiguousarray(frames[a : a + 16])
+                 for a in range(0, t, 16)))
+        kind, bpp = f"MHTC[{ch}ch", ch
+    else:
+        if p.is_dir():
+            files = sorted(
+                f for f in p.iterdir()
+                if f.suffix.lower() in (".png", ".jpg", ".jpeg", ".gray",
+                                        ".tga"))
+            if not files:
+                raise SystemExit(f"no image files in {args.input}")
+            first = imageio.load_grayscale(files[0])
+            h, w = first.shape
+            stats = drive(
+                lambda: make(h, w),
+                (imageio.load_grayscale(f) for f in files[1:]), first=first)
+        else:
+            frames = np.load(p, mmap_mode="r")
+            if frames.ndim != 3 or frames.dtype != np.uint8:
+                raise SystemExit(
+                    ".npy input must be a (T, H, W) uint8 array")
+            t, h, w = frames.shape
+            stats = drive(
+                lambda: make(h, w),
+                (np.ascontiguousarray(frames[a : a + 64])
+                 for a in range(0, t, 64)))
+        kind, bpp = ("MHTS[per-frame" if mhts else "MHV2[plain"), 1
+    dt = time.perf_counter() - t0
+    raw = stats.total_frames * h * w * bpp
+    if cfg.temporal:
+        mc = ", motion" if cfg.motion else ""
+        kind = f"MHVT[keyint {cfg.keyint}{mc}]/" + kind
+    if appending:
+        kind += ", appended"
+    print(
+        f"{args.input}: {stats.total_frames} frames {h}x{w} -> "
+        f"{kind}, {stats.num_segments} segments, streamed] "
+        f"{stats.bytes_written} bytes ({stats.bytes_written/raw:.1%}) "
+        f"in {dt:.2f} s"
+    )
+    return 0
+
+
 def cmd_encode_video(args) -> int:
     from .models import frame_stream
 
+    if args.streaming:
+        return _cmd_encode_video_streaming(args)
+    if args.segment_frames is not None:
+        raise SystemExit("--segment-frames requires --streaming")
+    if args.append:
+        raise SystemExit("--append requires --streaming")
     if args.motion and not args.temporal:
         raise SystemExit("--motion requires --temporal")
     if args.gray16 or args.color:
@@ -1283,6 +1475,133 @@ def _cmd_decode_video_color(args, data: bytes, cfg, check: bool,
     return 0
 
 
+def _surgery_crc_note(out: bytes, op: str) -> None:
+    """Warn when a surgery output records no whole-payload CRC.
+
+    Surgery never decodes, so it can only COMBINE recorded CRCs; an input
+    without one (or whose per-frame table is absent) silently yields an
+    output `verify` cannot check — say so instead of staying quiet."""
+    from .models import color, frame_stream, temporal
+
+    crc = 0
+    data = out
+    try:
+        if data[:4] == temporal.TEMPORAL_MAGIC:
+            crc = temporal.unwrap(data)[2]
+        else:
+            if data[:4] == color.COLOR_MAGIC:
+                data = color.unwrap(data)[0]
+            if data[:4] in (frame_stream.SHARED_MAGIC,
+                            frame_stream.SEGMENTED_MAGIC):
+                crc = frame_stream.source_crc32(data)
+    except ValueError:
+        return
+    if not crc:
+        print(f"note: the {op} output records no whole-payload CRC-32 (an "
+              "input lacked one to combine from), so `mht verify` cannot "
+              "check its payload; encode sources with --frame-crcs to keep "
+              "slice-level integrity through surgery", file=sys.stderr)
+
+
+def cmd_extract(args) -> int:
+    """Cut frames [A, B) out of a video container WITHOUT re-encoding (an
+    MHVT start inside a keyframe group decodes that group on --device)."""
+    from .models import surgery
+
+    data = Path(args.input).read_bytes()
+    a, b = args.frames
+    t0 = time.perf_counter()
+    info: dict = {}
+    try:
+        out = surgery.extract_video(data, a, b, info, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    # surgery reports what it actually did — the CLI never re-derives
+    # the keyframe-group math
+    how = "no re-encode"
+    if info.get("reencoded_frames"):
+        how = (f"re-keyed first group ({info['reencoded_frames']} frame(s) "
+               "re-encoded), rest spliced losslessly")
+    Path(args.output).write_bytes(out)
+    print(f"{args.input}: extracted frames [{a}, {b}) -> "
+          f"{args.output} ({len(out)} bytes, {how}, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    _surgery_crc_note(out, "extract")
+    return 0
+
+
+def cmd_concat(args) -> int:
+    """Splice video containers end to end WITHOUT re-encoding."""
+    from .models import surgery
+
+    if args.streaming:
+        t0 = time.perf_counter()
+        try:
+            info = surgery.concat_videos_streamed(args.inputs, args.output)
+        except (ValueError, OSError) as e:
+            raise SystemExit(str(e))
+        print(f"spliced {len(args.inputs)} file(s) -> {args.output} "
+              f"({info['bytes']} bytes, {info['segments']} segments, "
+              f"streamed copy, {(time.perf_counter() - t0) * 1e3:.1f} ms)")
+        if not info["crc_recorded"]:
+            # never re-read the (possibly huge) output just to notice this
+            print("note: output records no whole-payload CRC (an input "
+                  "lacked one) — `verify` cannot check it; re-encode with "
+                  "--frame-crcs to keep slice-level integrity",
+                  file=sys.stderr)
+        return 0
+    blobs = [Path(x).read_bytes() for x in args.inputs]
+    t0 = time.perf_counter()
+    try:
+        out = surgery.concat_videos(blobs)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    Path(args.output).write_bytes(out)
+    print(f"spliced {len(blobs)} container(s) -> {args.output} "
+          f"({len(out)} bytes, no re-encode, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    _surgery_crc_note(out, "concat")
+    return 0
+
+
+def cmd_resegment(args) -> int:
+    """Re-cut a container's segment structure losslessly.
+
+    Non-MHVT inputs ride the constant-memory file-to-file walker (mmap
+    span copy, byte-identical output) so archives bigger than RAM — the
+    feature's whole point — re-cut too; MHVT uses the in-memory form
+    (its wrapper tables are header-resident and small).
+    """
+    from .models import surgery
+
+    if args.segment_frames < 1:
+        raise SystemExit("--segment-frames must be >= 1")
+    t0 = time.perf_counter()
+    with open(args.input, "rb") as f:
+        head = f.read(4)
+    try:
+        if head == b"MHVT":
+            out = surgery.resegment_video(
+                Path(args.input).read_bytes(), args.segment_frames)
+            Path(args.output).write_bytes(out)
+            nbytes, crc_note = len(out), None
+        else:
+            info = surgery.resegment_video_streamed(
+                args.input, args.output, args.segment_frames)
+            nbytes, crc_note = info["bytes"], info["crc_recorded"]
+    except (ValueError, OSError) as e:
+        raise SystemExit(str(e))
+    print(f"{args.input}: resegmented at <= {args.segment_frames} "
+          f"frames/segment -> {args.output} ({nbytes} bytes, no "
+          f"re-encode, {(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    if crc_note is None:
+        _surgery_crc_note(out, "resegment")
+    elif not crc_note:
+        print("note: output records no whole-payload CRC (the input "
+              "lacked one) — `verify` cannot check it", file=sys.stderr)
+    return 0
+
+
 def _cmd_verify_streaming_temporal(args, data: bytes) -> int:
     """verify --streaming on an MHVT wrapper: reconstruct in keyframe-group-
     aligned chunks, verifying the FCRC table per chunk and the outer CRC
@@ -1655,6 +1974,28 @@ def main(argv=None) -> int:
                    help="record a per-frame CRC-32 table (4 B/frame) so "
                         "--frame / range random access verifies exactly "
                         "the frames it touches")
+    p.add_argument("--streaming", action="store_true",
+                   help="memory-bounded encode: consume the input "
+                        "incrementally (.npy via mmap, directories one "
+                        "image at a time) and write MHV2 segments as they "
+                        "fill — peak memory is one segment of raw frames, "
+                        "independent of video length; composes with "
+                        "--color/--gray16/--subgreen (MHTC), --temporal "
+                        "[--motion] (MHVT trailer layout), and "
+                        "--per-frame-tables (MHTS) — but not --best")
+    p.add_argument("--append", action="store_true",
+                   help="with --streaming: RESUME an existing finalized "
+                        "container in place (capture resume) — new frames "
+                        "chain onto the recorded CRC/FCRC tables and, for "
+                        "--temporal, the keyframe cadence and motion table "
+                        "continue (the open keyframe group decodes on "
+                        "--device); byte-identical to concatenating the "
+                        "parts, and a failed append restores the original "
+                        "file untouched")
+    p.add_argument("--segment-frames", type=int, default=None, metavar="N",
+                   help="with --streaming: cap frames per MHV2 segment to "
+                        "bound peak memory below the u32 offset-cap "
+                        "capacity (default)")
     _add_codec_flags(p)
     p.set_defaults(fn=cmd_encode_video)
 
@@ -1689,6 +2030,49 @@ def main(argv=None) -> int:
                         "end-bit check verifies exactly the touched blocks")
     _add_codec_flags(p)
     p.set_defaults(fn=cmd_decode_video)
+
+    p = sub.add_parser(
+        "extract",
+        help="cut frames [A, B) out of a video container WITHOUT "
+             "re-encoding (bit-identical code spans; CRCs combine "
+             "algebraically from any per-frame table). An MHVT start "
+             "inside a keyframe group re-encodes ONLY that group (decoded "
+             "on --device) and splices the rest losslessly")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--frames", type=int, nargs=2, required=True,
+                   metavar=("A", "B"))
+    p.add_argument("--device", type=_device, default="cuda",
+                   help="decode device of an MHVT mid-group start: cuda "
+                        "(default), cuda:N, or cpu")
+    p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser(
+        "concat",
+        help="splice video containers end to end WITHOUT re-encoding "
+             "(each input's streams become MHV2 segments with their own "
+             "canonical tables)")
+    p.add_argument("output")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("--streaming", action="store_true",
+                   help="constant-memory file-to-file splice (mmap span "
+                        "copy; byte-identical output) for archives bigger "
+                        "than RAM — MHTV/MHV2/MHTC inputs")
+    p.set_defaults(fn=cmd_concat)
+
+    p = sub.add_parser(
+        "resegment",
+        help="re-cut a video container's MHV2 segment structure WITHOUT "
+             "re-encoding (bit-identical trimmed spans; CRC/FCRC carry "
+             "over verbatim) — gives a monolithic archive the segment "
+             "granularity that bounds decode-video --streaming memory")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--segment-frames", type=int, required=True, metavar="N",
+                   help="max frames per output segment (input segments "
+                        "only ever split — each carries its own canonical "
+                        "table, so merging would need a re-encode)")
+    p.set_defaults(fn=cmd_resegment)
 
     p = sub.add_parser("info", help="describe a container (host only)")
     p.add_argument("input")

@@ -1,30 +1,32 @@
-"""One-command re-certification of the port's streamed decode, end to end
-(counterpart of the decode half of ``scripts/streaming_gate.py``, its
-stages 1-6).
+"""One-command re-certification of the port's streaming family, end to end
+(counterpart of ``scripts/streaming_gate.py``).
 
     python scripts/streaming_gate_torch.py                # on the card
     python scripts/streaming_gate_torch.py --device cpu   # plain versions
 
 It drives the port's CLI, one subprocess per command (``python -m
-metalhuffman_tpu_torch ... --device D``, the processes a user runs), and
-holds every output to its source frames:
+metalhuffman_tpu_torch ... --device D``, the processes a user runs), through
+every streaming writer/reader pair and holds every output to its source
+frames:
 
-  1. gray MHV2 of several segments, with per-frame CRCs: decode-video
-     --streaming, verify --streaming (the end-bit check per segment)
+  1. gray MHV2: encode-video --streaming (segments of 3, per-frame CRCs),
+     decode-video --streaming, verify --streaming (the end-bit check per
+     segment)
   2. a corrupted CRC trailer must fail the streamed verify
-  3. MHTC color (sub-green) over MHV2 segments: streamed decode
-  4. MHTC u16 over MHV2 segments: streamed decode
-  5. MHVT temporal + motion, keyint 4, per-frame CRCs: streamed decode
-     (the fold on the device), verify --streaming, --frame N --check
-  6. MHTS (a table per frame): decode-video --streaming --check
+  3. MHTC color (sub-green): streamed both directions
+  4. MHTC u16: streamed both directions
+  5. MHVT temporal + motion (the trailer layout), keyint 4, per-frame CRCs:
+     streamed encode, streamed decode (the fold on the device), verify
+     --streaming, --frame N --check
+  6. MHTS (a table per frame): streamed encode, decode-video --streaming
+     --check
+  7. resegment (streamed, file to file), then verify --streaming and a
+     streamed decode
+  8. capture resume: --append continues the temporal container in place
+     (its open keyframe group decoded on the device), byte-identical to
+     the one-shot capture
 
-The port has no streaming writer (the JAX package's ``stream_writer`` is
-host only), so the containers are written with the port's library:
-``frame_stream.encode_frames_segmented`` with a small ``max_segment_bits``
-and ``write_segmented``, ``color.wrap``, ``temporal.wrap`` and
-``write_stream``. Stages 7 (resegment) and 8 (--append) rest on that writer
-and are not ported. Prints one PASS line per stage and exits nonzero on the
-first failure.
+Prints one PASS line per check and exits nonzero on the first failure.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -42,30 +43,10 @@ sys.path.insert(0, str(REPO))
 
 import numpy as np  # noqa: E402
 
-from metalhuffman_tpu_torch.core import blocks  # noqa: E402
-from metalhuffman_tpu_torch.models import color as color_mod  # noqa: E402
-from metalhuffman_tpu_torch.models import frame_stream, temporal  # noqa: E402
-from metalhuffman_tpu_torch.models.config import CodecConfig  # noqa: E402
+from metalhuffman_tpu_torch.models import frame_stream  # noqa: E402
 from metalhuffman_tpu_torch.utils import examples, fixtures  # noqa: E402
 
 TIMEOUT = 600  #: seconds for one CLI command
-
-
-def segmented(planes: np.ndarray, per: int, frame_crcs=None) -> bytes:
-    """(N, H, W) uint8 planes -> an MHV2 of ``per`` planes a segment (the
-    last one shorter), recording the planes' CRC-32."""
-    n, h, w = planes.shape
-    bh, bw = blocks.block_grid(h, w, 8)
-    bits = per * bh * bw * 64 * frame_stream._SEG_BITS_PER_SYMBOL
-    cfg = CodecConfig()
-    segs = frame_stream.encode_frames_segmented(planes, cfg,
-                                                max_segment_bits=bits)
-    if [ft for _, ft in segs][:1] != [min(per, n)]:
-        raise ValueError(f"expected segments of {per} planes, got "
-                         f"{[ft for _, ft in segs]}")
-    return frame_stream.write_segmented(
-        segs, h, w, cfg, source_crc32=zlib.crc32(planes.tobytes()),
-        frame_crcs=frame_crcs)
 
 
 def corrupt_trailer(blob: bytes) -> bytes:
@@ -121,31 +102,16 @@ def main(argv=None) -> int:
         print(f"PASS  {what}: bit-exact", flush=True)
 
     try:
-        # the containers, written by the port's library
-        (tmp / "g.mhv2").write_bytes(segmented(
-            gray, 3, frame_stream.compute_frame_crcs(gray)))
-        planes = color_mod.to_subgreen(color).transpose(0, 3, 1, 2)
-        (tmp / "c.mhtc").write_bytes(color_mod.wrap(
-            segmented(planes.reshape(-1, h, w), 2 * 3), 3,
-            color_mod.LAYOUT_VIDEO, color_mod.KIND_U8,
-            color_mod.CS_SUBGREEN))
-        planes = np.stack([(u16 >> 8).astype(np.uint8),
-                           (u16 & 0xFF).astype(np.uint8)], axis=1)
-        (tmp / "u.mhtc").write_bytes(color_mod.wrap(
-            segmented(planes.reshape(-1, h, w), 2 * 2), 2,
-            color_mod.LAYOUT_VIDEO, color_mod.KIND_U16))
-        res, mvs = temporal.temporal_encode_mc(gray, 4)
-        (tmp / "t.mhvt").write_bytes(temporal.wrap(
-            segmented(res, 3), 4, source_crc32=zlib.crc32(gray.tobytes()),
-            mvs=mvs, frame_crcs=frame_stream.compute_frame_crcs(gray)))
-        (tmp / "s.mhts").write_bytes(frame_stream.write_stream(
-            frame_stream.encode_frames(gray), h, w,
-            source_crc32s=[zlib.crc32(f.tobytes()) for f in gray]))
+        np.save(tmp / "gray.npy", gray)
+        np.save(tmp / "color.npy", color)
+        np.save(tmp / "u16.npy", u16)
 
-        # 1) gray MHV2 streamed + streamed verify (end-bit per segment)
+        # 1) gray MHV2 streamed both directions + streamed verify (end-bit)
+        run("encode-video", str(tmp / "gray.npy"), str(tmp / "g.mhv2"),
+            "--streaming", "--segment-frames", "3", "--frame-crcs", *dev)
         run("decode-video", str(tmp / "g.mhv2"), str(tmp / "g_out.npy"),
             "--streaming", *dev)
-        check(tmp / "g_out.npy", gray, "gray MHV2 streamed decode")
+        check(tmp / "g_out.npy", gray, "gray MHV2 streamed roundtrip")
         run("verify", str(tmp / "g.mhv2"), "--streaming", *dev)
         print("PASS  gray MHV2 verify --streaming (end-bit per segment)",
               flush=True)
@@ -158,20 +124,29 @@ def main(argv=None) -> int:
         print("PASS  corrupted CRC fails streamed verify", flush=True)
 
         # 3) color (sub-green) streamed
+        run("encode-video", str(tmp / "color.npy"), str(tmp / "c.mhtc"),
+            "--streaming", "--color", "--subgreen", "--segment-frames", "2",
+            *dev)
         run("decode-video", str(tmp / "c.mhtc"), str(tmp / "c_out.npy"),
             "--streaming", *dev)
-        check(tmp / "c_out.npy", color, "MHTC color streamed decode")
+        check(tmp / "c_out.npy", color, "MHTC color streamed roundtrip")
 
         # 4) u16 streamed
+        run("encode-video", str(tmp / "u16.npy"), str(tmp / "u.mhtc"),
+            "--streaming", "--gray16", "--segment-frames", "2", *dev)
         run("decode-video", str(tmp / "u.mhtc"), str(tmp / "u_out.npy"),
             "--streaming", *dev)
-        check(tmp / "u_out.npy", u16, "MHTC u16 streamed decode")
+        check(tmp / "u_out.npy", u16, "MHTC u16 streamed roundtrip")
 
-        # 5) temporal + motion: streamed decode through the device fold,
-        #    streamed verify, checked random access
+        # 5) temporal + motion, streamed encode (the trailer layout),
+        #    streamed decode through the device fold, streamed verify,
+        #    checked random access
+        run("encode-video", str(tmp / "gray.npy"), str(tmp / "t.mhvt"),
+            "--streaming", "--temporal", "--motion", "--keyint", "4",
+            "--frame-crcs", "--segment-frames", "3", *dev)
         run("decode-video", str(tmp / "t.mhvt"), str(tmp / "t_out.npy"),
             "--streaming", *dev)
-        check(tmp / "t_out.npy", gray, "MHVT temporal+MC streamed decode")
+        check(tmp / "t_out.npy", gray, "MHVT temporal+MC streamed roundtrip")
         run("verify", str(tmp / "t.mhvt"), "--streaming", *dev)
         print("PASS  MHVT verify --streaming (chained CRC + FCRC per chunk)",
               flush=True)
@@ -180,15 +155,43 @@ def main(argv=None) -> int:
             "--frame", str(n), "--check", *dev)
         check(tmp / "t_f.npy", gray[n], f"MHVT --frame {n} --check")
 
-        # 6) MHTS streamed checked decode
+        # 6) MHTS streamed encode + streamed checked decode
+        run("encode-video", str(tmp / "gray.npy"), str(tmp / "s.mhts"),
+            "--streaming", "--per-frame-tables", *dev)
         run("decode-video", str(tmp / "s.mhts"), str(tmp / "s_out.npy"),
             "--streaming", "--check", *dev)
-        check(tmp / "s_out.npy", gray, "MHTS streamed checked decode")
+        check(tmp / "s_out.npy", gray, "MHTS streamed checked roundtrip")
 
-        # 7) and 8) rest on the streaming writer, which is not ported
-        print("SKIP  7) resegment and 8) capture resume (--append): not "
-              "ported (the JAX package's host-only streaming writer)",
+        # 7) streamed resegment feeds the streamed verify
+        run("resegment", str(tmp / "g.mhv2"), str(tmp / "g2.mhv2"),
+            "--segment-frames", "2")
+        run("verify", str(tmp / "g2.mhv2"), "--streaming", *dev)
+        run("decode-video", str(tmp / "g2.mhv2"), str(tmp / "g2_out.npy"),
+            "--streaming", *dev)
+        check(tmp / "g2_out.npy", gray, "resegmented archive streamed decode")
+
+        # 8) capture resume: half the frames, then --append the rest; the
+        #    file must equal the one-shot temporal capture byte for byte
+        half = t // 2
+        np.save(tmp / "h1.npy", gray[:half])
+        np.save(tmp / "h2.npy", gray[half:])
+        targs = ["--streaming", "--temporal", "--motion", "--keyint", "4",
+                 "--frame-crcs", "--segment-frames", str(half), *dev]
+        run("encode-video", str(tmp / "h1.npy"), str(tmp / "resume.mhvt"),
+            *targs)
+        run("encode-video", str(tmp / "h2.npy"), str(tmp / "resume.mhvt"),
+            "--append", *targs)
+        run("encode-video", str(tmp / "gray.npy"), str(tmp / "one.mhvt"),
+            *targs)
+        if (tmp / "resume.mhvt").read_bytes() != (
+                tmp / "one.mhvt").read_bytes():
+            print("FAIL: resumed capture != one-shot capture bytes")
+            sys.exit(1)
+        print("PASS  capture resume (--append): byte-identical to one-shot",
               flush=True)
+        run("decode-video", str(tmp / "resume.mhvt"),
+            str(tmp / "resume_out.npy"), "--streaming", *dev)
+        check(tmp / "resume_out.npy", gray, "resumed capture streamed decode")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

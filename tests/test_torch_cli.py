@@ -606,3 +606,272 @@ def test_image_commands_print_the_device(d, tmp_path, capsys):
     assert "(cpu)" in out[-1]
     np.testing.assert_array_equal(imageio.load_color(tmp_path / "c.png"),
                                   d[2]["rgb"])
+
+
+# -- the streaming writer and surgery verbs ----------------------------------
+
+
+def _said(capsys, root: Path) -> tuple[str, str]:
+    """What a command printed, stdout and stderr, with ``root`` cut out of
+    the paths and the timings (``in 0.01 s``, ``0.3 ms``) left out."""
+    import re
+
+    got = capsys.readouterr()
+    return tuple(re.sub(r"\d+\.\d+ (s|ms)\b", "T", text.replace(
+        str(root), "<dir>")) for text in (got.out, got.err))
+
+
+def _both_clis(capsys, tmp_path, files: dict, *argv, port=CPU, jax=()):
+    """Run ``argv`` through both CLIs, each in a directory of its own that
+    holds ``files`` (name -> bytes); ``@name`` in ``argv`` is a path there.
+    Both must print the same lines (less timings) and leave the same files
+    -> the port's directory."""
+    outs = []
+    for main, extra, sub in ((cli.main, port, "t"), (jcli.main, jax, "j")):
+        root = tmp_path / sub
+        root.mkdir(exist_ok=True)
+        for name, data in files.items():
+            (root / name).write_bytes(data)
+        args = [str(root / a[1:]) if str(a).startswith("@") else str(a)
+                for a in argv]
+        _run(main, *args, *extra)
+        outs.append((_said(capsys, root), {
+            p.name: p.read_bytes() for p in sorted(root.iterdir())}))
+    assert outs[0][0] == outs[1][0]
+    assert outs[0][1] == outs[1][1]
+    return tmp_path / "t", outs[0][0]
+
+
+STREAMING_ENCODES = {
+    # id: (input, flags)
+    "gray": ("video", ["--segment-frames", "3", "--frame-crcs"]),
+    "gray-default-capacity": ("video", ["--delta2d"]),
+    "bd16-zero-init": ("video", ["--block-dim", "16", "--zero-init",
+                                 "--segment-frames", "4"]),
+    "color-subgreen": ("cvideo", ["--color", "--subgreen",
+                                  "--segment-frames", "2"]),
+    "gray16": ("v16", ["--gray16", "--segment-frames", "3",
+                       "--frame-crcs"]),
+    "temporal-motion": ("video", ["--temporal", "--motion", "--keyint", "4",
+                                  "--segment-frames", "3", "--frame-crcs"]),
+    "temporal-color": ("cvideo", ["--temporal", "--color", "--keyint", "3",
+                                  "--segment-frames", "2"]),
+    "temporal-gray16": ("v16", ["--temporal", "--gray16", "--keyint", "4"]),
+    "per-frame-tables": ("video", ["--per-frame-tables"]),
+}
+
+
+@pytest.mark.parametrize("case", STREAMING_ENCODES)
+def test_streaming_encode_matches_the_jax_cli(case, d, tmp_path, capsys):
+    src, flags = STREAMING_ENCODES[case]
+    _root, paths, arrays = d
+    files = {"in.npy": paths[src].read_bytes()}
+    root, (out, _err) = _both_clis(
+        capsys, tmp_path, files, "encode-video", "@in.npy", "@o.bin",
+        "--streaming", *flags, jax=NATIVE)
+    assert "streamed]" in out
+    dec = tmp_path / "d.npy"
+    _run(cli.main, "decode-video", root / "o.bin", dec, *CPU)
+    np.testing.assert_array_equal(np.load(dec), arrays[src])
+
+
+APPENDS = {
+    # id: (input, split, flags)
+    "mhv2": ("video", 4, ["--segment-frames", "2", "--frame-crcs"]),
+    "mhvt-motion-mid-group": ("video", 6, ["--temporal", "--motion",
+                                           "--keyint", "4",
+                                           "--segment-frames", "3",
+                                           "--frame-crcs"]),
+    "mhvt-color": ("cvideo", 4, ["--temporal", "--color", "--keyint", "2",
+                                 "--segment-frames", "2"]),
+    "mhts": ("video", 3, ["--per-frame-tables"]),
+}
+
+
+@pytest.mark.parametrize("case", APPENDS)
+def test_append_matches_the_jax_cli_and_the_oneshot(case, d, tmp_path,
+                                                    capsys):
+    src, split, flags = APPENDS[case]
+    frames = d[2][src]
+    parts = {}
+    for name, arr in (("a.npy", frames[:split]), ("b.npy", frames[split:]),
+                      ("all.npy", frames)):
+        np.save(tmp_path / name, arr)
+        parts[name] = (tmp_path / name).read_bytes()
+    root, _ = _both_clis(capsys, tmp_path, parts, "encode-video", "@a.npy",
+                         "@cap.bin", "--streaming", *flags, jax=NATIVE)
+    parts["cap.bin"] = (root / "cap.bin").read_bytes()
+    root, (out, _err) = _both_clis(
+        capsys, tmp_path, parts, "encode-video", "@b.npy", "@cap.bin",
+        "--streaming", "--append", *flags, jax=NATIVE)
+    assert ", appended," in out
+    _run(cli.main, "encode-video", tmp_path / "all.npy", tmp_path / "one.bin",
+         "--streaming", *flags)
+    if split % 2 == 0 or "--per-frame-tables" in flags:
+        assert (root / "cap.bin").read_bytes() == \
+            (tmp_path / "one.bin").read_bytes()
+    dec = tmp_path / "d.npy"
+    _run(cli.main, "decode-video", root / "cap.bin", dec, *CPU)
+    np.testing.assert_array_equal(np.load(dec), frames)
+
+
+@pytest.fixture(scope="module")
+def surgery_files(d):
+    """JAX-CLI-written containers for the surgery verbs, as bytes."""
+    root, paths, _arrays = d
+    made = {
+        "mhtv": ("video", ["--frame-crcs"], False),
+        "mhtv-no-crc": ("video", [], False),
+        "mhv2": ("video", ["--streaming", "--segment-frames", "3",
+                           "--frame-crcs"], False),
+        "mhts": ("video", ["--per-frame-tables"], False),
+        "mhtc": ("cvideo", ["--color", "--subgreen", "--frame-crcs"], False),
+        "mhvt": ("video", ["--temporal", "--keyint", "4", "--frame-crcs"],
+                 False),
+        "mhvt-mc": ("video", ["--temporal", "--motion", "--keyint", "4",
+                              "--streaming", "--segment-frames", "3"], True),
+    }
+    out = {}
+    for name, (src, flags, _streamed) in made.items():
+        path = root / f"surgery-{name}.bin"
+        _run(jcli.main, "encode-video", paths[src], path, *flags, *NATIVE)
+        out[name] = path.read_bytes()
+    return out
+
+
+SURGERY = {
+    # id: (argv with @file names, files, device flag)
+    "extract-mhv2": (["extract", "@mhv2", "@o", "--frames", "2", "8"], True),
+    "extract-no-crc-note": (["extract", "@mhtv-no-crc", "@o", "--frames",
+                             "1", "4"], True),
+    "extract-mhts-note": (["extract", "@mhts", "@o", "--frames", "3", "9"],
+                          True),
+    "extract-mhtc": (["extract", "@mhtc", "@o", "--frames", "0", "5"], True),
+    "extract-mhvt-keyframe": (["extract", "@mhvt", "@o", "--frames", "4",
+                               "10"], True),
+    "extract-mhvt-mid-group": (["extract", "@mhvt", "@o", "--frames", "2",
+                                "9"], True),
+    "extract-mhvt-mc-mid-group-note": (["extract", "@mhvt-mc", "@o",
+                                        "--frames", "5", "10"], True),
+    "concat": (["concat", "@o", "@mhtv", "@mhv2"], False),
+    "concat-fcrc-and-not": (["concat", "@o", "@mhtv", "@mhtv-no-crc"], False),
+    "concat-streaming": (["concat", "@o", "@mhv2", "@mhtv", "--streaming"],
+                         False),
+    "concat-streaming-fcrc-and-not": (["concat", "@o", "@mhtv-no-crc", "@mhtv",
+                                 "--streaming"], False),
+    "concat-mhts-note": (["concat", "@o", "@mhts", "@mhts"], False),
+    "resegment": (["resegment", "@mhtv", "@o", "--segment-frames", "3"],
+                  False),
+    "resegment-no-fcrc": (["resegment", "@mhtv-no-crc", "@o",
+                          "--segment-frames", "4"], False),
+    "resegment-mhtc": (["resegment", "@mhtc", "@o", "--segment-frames", "2"],
+                       False),
+    "resegment-mhvt": (["resegment", "@mhvt-mc", "@o", "--segment-frames",
+                        "2"], False),
+}
+
+
+@pytest.mark.parametrize("case", SURGERY)
+def test_surgery_verbs_match_the_jax_cli(case, surgery_files, tmp_path,
+                                         capsys):
+    argv, device = SURGERY[case]
+    _root, (out, err) = _both_clis(capsys, tmp_path, surgery_files, *argv,
+                                   port=CPU if device else ())
+    assert out.strip()
+    assert ("note" in case) == ("note:" in err)
+
+
+SURGERY_ERRORS = {
+    "extract-range": ["extract", "@mhtv", "@o", "--frames", "5", "12"],
+    "extract-mhvt-range": ["extract", "@mhvt", "@o", "--frames", "3", "11"],
+    "concat-kinds": ["concat", "@o", "@mhtv", "@mhts"],
+    "concat-partial-groups": ["concat", "@o", "@mhvt", "@mhvt"],
+    "concat-streaming-mhvt": ["concat", "@o", "@mhvt", "@mhvt",
+                              "--streaming"],
+    "resegment-zero": ["resegment", "@mhtv", "@o", "--segment-frames", "0"],
+}
+
+
+@pytest.mark.parametrize("case", SURGERY_ERRORS)
+def test_surgery_errors_give_the_jax_messages(case, surgery_files, tmp_path):
+    msgs = []
+    for main in (cli.main, jcli.main):
+        root = tmp_path / main.__module__
+        root.mkdir()
+        for name, data in surgery_files.items():
+            (root / name).write_bytes(data)
+        argv = [str(root / a[1:]) if a.startswith("@") else a
+                for a in SURGERY_ERRORS[case]]
+        msgs.append(_exit_message(main, *argv).replace(str(root), "<dir>"))
+    assert msgs[0] == msgs[1]
+
+
+STREAMING_FLAG_ERRORS = {
+    "segment-frames-without-streaming": ("video", ["--segment-frames", "2"]),
+    "append-without-streaming": ("video", ["--append"]),
+    "append-to-nothing": ("video", ["--streaming", "--append"]),
+    "streaming-best": ("video", ["--streaming", "--best"]),
+    "streaming-best-fast": ("video", ["--streaming", "--temporal",
+                                      "--best-fast"]),
+    "streaming-motion-without-temporal": ("video", ["--streaming",
+                                                    "--motion"]),
+    "streaming-gray16-and-color": ("v16", ["--streaming", "--gray16",
+                                           "--color"]),
+    "streaming-mhts-temporal": ("video", ["--streaming", "--temporal",
+                                          "--per-frame-tables"]),
+    "streaming-mhts-color": ("cvideo", ["--streaming", "--color",
+                                        "--per-frame-tables"]),
+    "streaming-mhts-segments": ("video", ["--streaming",
+                                          "--per-frame-tables",
+                                          "--segment-frames", "2"]),
+    "streaming-segment-frames-zero": ("video", ["--streaming",
+                                                "--segment-frames", "0"]),
+    "streaming-subgreen-without-color": ("video", ["--streaming",
+                                                   "--subgreen"]),
+    "streaming-gray16-not-u16": ("video", ["--streaming", "--gray16"]),
+}
+
+
+@pytest.mark.parametrize("case", STREAMING_FLAG_ERRORS)
+def test_streaming_flag_errors_give_the_jax_messages(case, d, tmp_path):
+    src, flags = STREAMING_FLAG_ERRORS[case]
+    path = d[1][src]
+    out = tmp_path / "o.bin"
+    assert (_exit_message(cli.main, "encode-video", path, out, *flags, *CPU)
+            == _exit_message(jcli.main, "encode-video", path, out, *flags,
+                             *NATIVE))
+    assert not out.exists()
+
+
+def test_append_mismatch_is_the_jax_message_and_keeps_the_file(d, tmp_path):
+    path = d[1]["video"]
+    cap = tmp_path / "cap.mhvt"
+    _run(cli.main, "encode-video", path, cap, "--streaming", "--temporal",
+         "--keyint", "4")
+    orig = cap.read_bytes()
+    msgs = [_exit_message(main, "encode-video", path, cap, "--streaming",
+                          "--temporal", "--keyint", "5", "--append", *extra)
+            for main, extra in ((cli.main, CPU), (jcli.main, NATIVE))]
+    assert msgs[0] == msgs[1] and "keyint" in msgs[0]
+    assert cap.read_bytes() == orig
+
+
+def test_streamed_surgery_errors_are_clean(surgery_files, tmp_path):
+    # the JAX package's walker raises BufferError here (mmap.close() while
+    # a slice of the map is still referenced); the port releases its views
+    for name, data in surgery_files.items():
+        (tmp_path / name).write_bytes(data)
+    (tmp_path / "cut").write_bytes(surgery_files["mhv2"][:200])
+    cases = [
+        (["resegment", "mhts", "o", "--segment-frames", "2"],
+         "not a video container"),
+        (["resegment", "cut", "o", "--segment-frames", "2"],
+         "truncated container"),
+        (["concat", "o", "cut", "--streaming"], "truncated container"),
+        (["concat", "o", "mhts", "mhtv", "--streaming"],
+         "not a video container"),
+    ]
+    for argv, msg in cases:
+        args = [str(tmp_path / a) if a in surgery_files or a in ("o", "cut")
+                else a for a in argv]
+        assert msg in _exit_message(cli.main, *args)

@@ -8,11 +8,13 @@ inputs, and decoded arrays equal to their sources. The JAX side runs only
 its host encoders (``backend="native"``) and its fixtures: no Pallas
 compile. The bridge photo is cut to its top-left 768x768 where the full
 frame would make a test slow (the video twin's 256x256 region at (512,
-512) still fits). The multi-process twins run as gloo ranks, the
+512) still fits). The streaming pipeline twin prints the JAX example's
+lines on that crop. The multi-process twins run as gloo ranks, the
 streaming gate as a subprocess driving the port's CLI.
 """
 
 import importlib.util
+import io
 import os
 import socket
 import subprocess
@@ -26,6 +28,8 @@ import torch
 import metalhuffman_tpu as mh
 from metalhuffman_tpu.models import CodecConfig as JaxConfig
 from metalhuffman_tpu.models import color as jcolor
+from metalhuffman_tpu.models import stream_writer as jsw
+from metalhuffman_tpu.models import surgery as jsurgery
 from metalhuffman_tpu.models import temporal as jtemporal
 from metalhuffman_tpu.utils import fixtures as jfx
 from metalhuffman_tpu_torch import bench
@@ -89,7 +93,8 @@ def test_video_pipeline_twin(crop, capsys):
     src = _decoded_equal(out, [
         "decode_video", "StreamingDecoder", "decode_frame 4",
         "decode_shared_step_checked", "decode_video temporal",
-        "decode_temporal_frame 4", "decode_video_region"])
+        "decode_temporal_frame 4", "decode_video_region",
+        "decode_video extract", "decode_video concat"])
     frames = np.stack([np.roll(crop, 16 * t, axis=1) for t in range(6)])
     np.testing.assert_array_equal(src["decode_video"], frames)
     np.testing.assert_array_equal(src["decode_video_region"],
@@ -100,9 +105,61 @@ def test_video_pipeline_twin(crop, capsys):
         frames, _native(delta2d=True, temporal=True, motion=True))
     assert out["kind"] == kind
     assert out["blobs"]["temporal"] == tblob
+    part = jsurgery.extract_video(out["blobs"]["video"], 1, 5)
+    assert out["blobs"]["extract"] == part
+    assert out["blobs"]["concat"] == jsurgery.concat_videos(
+        [part, out["blobs"]["video"]])
+    np.testing.assert_array_equal(src["decode_video concat"],
+                                  np.concatenate([frames[1:5], frames]))
     text = capsys.readouterr().out
-    assert "surgery: not ported" in text
+    assert (f"surgery: extract+concat bit-exact, zero re-encode ({len(part)}"
+            f" + {len(out['blobs']['video'])} -> "
+            f"{len(out['blobs']['concat'])} bytes)") in text
     assert text.strip().splitlines()[-1] == "video pipeline OK"
+
+
+def test_streaming_pipeline_twin_prints_the_jax_examples_lines(crop,
+                                                               monkeypatch,
+                                                               capsys):
+    out = _load("examples/streaming_pipeline_torch.py").main(CPU)
+    src = _decoded_equal(out, ["iter_frames_segmented", "decode_color_video",
+                               "iter_temporal_video",
+                               "decode_temporal_video"])
+    ours = capsys.readouterr().out.strip().splitlines()
+    # the JAX example on the same crop, its host decoder and its own files
+    monkeypatch.setattr(jfx, "render_frame", lambda name, path=None: (
+        crop.copy() if name == "bridge" else None))
+    _load("examples/streaming_pipeline.py").main()
+    assert ours == capsys.readouterr().out.strip().splitlines()
+    assert ours[-1] == "OK"
+    frames = np.stack([np.roll(crop, (3 * t, 16 * t), axis=(0, 1))
+                       for t in range(24)])
+    np.testing.assert_array_equal(src["iter_frames_segmented"], frames)
+    np.testing.assert_array_equal(src["decode_temporal_video"], frames[:12])
+    # the blobs, against the JAX package's writers on the same frames
+    h, w = crop.shape
+    sink = io.BytesIO()
+    with jsw.StreamingEncoder(sink, h, w, _native(), max_segment_frames=6,
+                              frame_crcs=True) as enc:
+        enc.push(frames)
+    assert out["blobs"]["mhv2"] == sink.getvalue()
+    cframes = src["decode_color_video"]
+    sink = io.BytesIO()
+    with jsw.ColorStreamingEncoder(sink, 512, 512, channels=3,
+                                   config=_native(),
+                                   colorspace=jcolor.CS_SUBGREEN,
+                                   max_segment_frames=2) as enc:
+        enc.push(cframes)
+    assert out["blobs"]["color"] == sink.getvalue()
+    tcfg = _native(temporal=True, keyint=4, motion=True)
+    assert out["blobs"]["temporal"] == jtemporal.encode_temporal_video(
+        frames[:12], tcfg)
+    sink = io.BytesIO()
+    with jsw.TemporalStreamingEncoder(
+            sink, h, w, _native(temporal=True, keyint=3, motion=True),
+            max_segment_frames=3, frame_crcs=True) as enc:
+        enc.push(frames[:12])
+    assert out["blobs"]["resumed"] == sink.getvalue()
 
 
 def test_color_pipeline_twin(crop):
@@ -213,9 +270,12 @@ def test_streaming_gate_twin_passes():
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "STREAMING GATE: ALL PASS (device cpu)"
     passes = [ln for ln in lines if ln.startswith("PASS")]
-    assert len(passes) == 9
+    assert len(passes) == 12
     assert "PASS  corrupted CRC fails streamed verify" in passes
-    assert any(ln.startswith("SKIP  7) resegment") for ln in lines)
+    assert "PASS  resegmented archive streamed decode: bit-exact" in passes
+    assert ("PASS  capture resume (--append): byte-identical to one-shot"
+            in passes)
+    assert not any(ln.startswith("SKIP") for ln in lines)
 
 
 def test_streaming_gate_twin_fails_when_a_corrupt_trailer_is_accepted(

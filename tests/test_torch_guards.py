@@ -26,6 +26,7 @@ import chip_smoke  # noqa: E402
 TWINS = [ROOT / p for p in (
     "examples/quickstart_torch.py", "examples/video_pipeline_torch.py",
     "examples/color_pipeline_torch.py", "examples/multihost_decode_torch.py",
+    "examples/streaming_pipeline_torch.py",
     "examples/scaling_report_torch.py", "scripts/perf_matrix_torch.py",
     "scripts/streaming_gate_torch.py")]
 PORT_FILES = sorted((ROOT / "metalhuffman_tpu_torch").rglob("*.py")) + [
@@ -182,17 +183,48 @@ def test_chip_smoke_phase_j_names_every_twin():
     assert "def phase_j(" in src and "phase_j(device)" in src
     assert {str(p.relative_to(ROOT)) for p in TWINS} == {
         path for path, _ in chip_smoke.J_TWINS.values()}
-    # the launch expectation of phase J: the examples' 13 B1 and 1 B2, and
+    # the launch expectation of phase J: the examples' 30 B1 and 1 B2, and
     # the perf matrix's 10 rows (5 of run_video, 5 of the MHVT decode)
     got = chip_smoke.j_expected({"frames": 1, "iters": 1, "variants": 2})
-    assert got == chip_smoke.expect(decode_images=133, decode_blocks=1)
+    assert got == chip_smoke.expect(decode_images=150, decode_blocks=1)
+
+
+@pytest.mark.parametrize("verb", ["extract", "concat", "resegment"])
+def test_surgery_verbs_help_without_jax(verb):
+    code = """
+import runpy, sys
+sys.modules['jax'] = None
+sys.modules['metalhuffman_tpu'] = None
+sys.argv = ['metalhuffman_tpu_torch', sys.argv[1], '--help']
+try:
+    runpy.run_module('metalhuffman_tpu_torch', run_name='__main__')
+finally:
+    from metalhuffman_tpu_torch.models import stream_writer, surgery
+    from metalhuffman_tpu_torch.core import crc
+    assert not any(m == 'jax' or m.startswith(('jax.', 'metalhuffman_tpu.'))
+                   or m == 'metalhuffman_tpu' for m in sys.modules
+                   if sys.modules[m] is not None)
+"""
+    proc = subprocess.run([sys.executable, "-c", code, verb], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert f"usage: metalhuffman_tpu_torch {verb}" in proc.stdout
+
+
+def test_chip_smoke_drives_phase_k_after_phase_j():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    assert main.index("phase_j(device)") < main.index("phase_k(device)")
+    assert 'print("phase K " + json.dumps(' in main
+    assert chip_smoke.F1_FRAMES == 150 and chip_smoke.FULL[1:] == (1536, 2048)
 
 
 def test_guard_glob_covers_the_cli_modules():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"metalhuffman_tpu_torch/{m}.py" for m in (
         "cli", "__main__", "bench", "utils/imageio", "utils/debug",
-        "utils/profiling", "core/decode_ref")} <= names
+        "utils/profiling", "core/decode_ref", "core/crc",
+        "models/stream_writer", "models/surgery")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
