@@ -49,12 +49,14 @@ Phases (any failure exits nonzero and prints no result):
    decoded back by ``decode_video`` on the card (CRC-checked, equal to the
    frames).
 6. Phase E, the probes of B1 (``metalhuffman_tpu_torch.probes``), each
-   against its plain version, tolerance 0: S1 (``decode_strips``) and every
-   S2 variant (``ablate_decode``) on 2x2048x1536 and 1x1920x1080 photo and
-   synthetic frames (also against the frames), on the 16-bit-code table of
-   the encoder tests and on a table of 128 secondary lookup tables (the
-   ``lut`` variant's T2 read through L1); every S3 variant (``int16_rate``)
-   on 2^16 elements.
+   against its plain version, tolerance 0: S1 (``decode_strips``) in both
+   forms (one-shot and prefetching) and every S2 variant (``ablate_decode``:
+   the interval-body family and the b1 family on B1's lookup table) on
+   2x2048x1536 and 1x1920x1080 photo and synthetic frames (also against the
+   frames), on the 16-bit-code table of the encoder tests as one row of
+   262,143 blocks (an odd bw) and on a table of 128 secondary lookup tables
+   (the ``lut`` variant's T2 read through L1); every S3 variant
+   (``int16_rate``) on 2^16 elements.
 7. Phase F, segmented video, random access and MHTS at full size. F1: 150
    photo frames through ``encode_video`` (per-frame CRCs on), an MHV2 of
    segments [136, 14]; on the card ``decode_video``, the checked segmented
@@ -187,12 +189,15 @@ Phases (any failure exits nonzero and prints no result):
    its plain version, and on the host's clock each step of the hybrid
    encode, the whole call, the host encoder and the row-form path it
    replaced (host bit counts, B3, rows back, row merge); one ``decode_image`` of
-   the photo at 8x8 and 16x16; B1, S1 and every S2 variant
+   the photo at 8x8 and 16x16; B1, both forms of S1 and every S2 variant
    in interleaved rounds on 4 staged 30x2048x1536 photo batches and 4
    synthetic ones (one table each), each held equal to its plain version
-   there first (S2 ``base`` is B1's interval body before its redesign); every S3
-   variant and its plain version on 2^22 elements, and the SASS opcodes of
-   the S3 kernels; phase F's: the MHV2 decode of F1 whole and each segment
+   there first, each with its CUDA blocks per SM and registers (S2 ``base``
+   is B1's interval body before its redesign, ``b1`` its body now, the
+   yardstick of the b1 family, its median printed against B1's min-max);
+   B1's host time per enqueued call through its wrapper and through its C
+   entry alone; every S3 variant and its plain version on 2^22 elements, and the
+   SASS opcodes of the S3 kernels and of S2's b1 family; phase F's: the MHV2 decode of F1 whole and each segment
    alone (host clock; staging, B1 and fetch apart), the host build of each
    of F3's lookup tables, and F3's MHTS decode (a launch per frame) against
    one MHTV launch of the same 30 frames; phase G's, for G1-G4: staging,
@@ -961,8 +966,21 @@ def wide_lut_stream(n_blocks: int):
                                    offs[:-1:64].astype(np.uint32))
 
 
+def probe_tables(prep, widths, device) -> dict:
+    """The tables the S2 variants take beyond the staged stream's: the
+    ``lut`` variant's 8/8 table, B1's 11/5 table (``prep.table``) and
+    ``b1_esc32``'s u32 one."""
+    from metalhuffman_tpu_torch.ops import decode_cuda
+    from metalhuffman_tpu_torch.probes import ablate_decode
+
+    return dict(lut=ablate_decode.lut_tables(widths, device), table=prep.table,
+                table32=ablate_decode.esc32_table(
+                    decode_cuda.canonical_meta(widths), device))
+
+
 def probe_cases(device) -> list:
-    """Phase E's decode inputs -> [(name, prep, lut tables, frames or None)]."""
+    """Phase E's decode inputs -> [(name, prep, S2's tables, frames or
+    None)]."""
     from metalhuffman_tpu_torch import native
     from metalhuffman_tpu_torch.models import frame_stream as fs
     from metalhuffman_tpu_torch.probes import ablate_decode
@@ -980,9 +998,12 @@ def probe_cases(device) -> list:
                          ("128 T2 tables", wide_lut_stream(8192))):
         cases.append((name, None, stream,
                       (1, 8, 8 * stream.block_offsets.size)))
-    return [(name, fs.prepare_shared(stream, *geo, device=device),
-             ablate_decode.lut_tables(stream.widths, device), frames)
-            for name, frames, stream, geo in cases]
+    out = []
+    for name, frames, stream, geo in cases:
+        prep = fs.prepare_shared(stream, *geo, device=device)
+        out.append((name, prep, probe_tables(prep, stream.widths, device),
+                    frames))
+    return out
 
 
 def phase_e(device) -> tuple[dict, dict]:
@@ -1000,21 +1021,24 @@ def phase_e(device) -> tuple[dict, dict]:
     worst = dict.fromkeys(("decode_strips", "ablate_decode", "int16_rate"), 0)
 
     reset_launches()
-    for name, p, lut, frames in cases:
+    for name, p, tabs, frames in cases:
         args = (p.words, p.offsets, p.symbols, p.bounds, p.adj)
         geo = dict(num_frames=p.num_frames, bh=p.bh, bw=p.bw)
         plain = decode_cuda.decode_images_plain(*args, **geo, delta=True)
-        outs = {"S1 strips": strips.decode_strips(*args, **geo)}
+        outs = {f"S1 {form}": strips.decode_strips(
+            *args, **geo, table=p.table, prefetch=prefetch)
+            for form, prefetch in strips.FORMS.items()}
         for v in ablate_decode.VARIANTS:
             outs[f"S2 {v}"] = ablate_decode.ablate_decode(
-                *args, **geo, variant=v, lut=lut)
+                *args, **geo, variant=v, **tabs)
         for label, out in outs.items():
             want = (ablate_decode.xor_fold(plain, **geo)
                     if label == "S2 xorfold" else plain)
             # bytes: the xorfold words compared byte by byte
             err = int((out.view(torch.uint8).int()
                        - want.view(torch.uint8).int()).abs().max())
-            kernel = "decode_strips" if label == "S1 strips" else "ablate_decode"
+            kernel = ("decode_strips" if label.startswith("S1")
+                      else "ablate_decode")
             worst[kernel] = max(worst[kernel], err)
             check(err == 0, f"phase E {name} {label}: kernel differs from "
                   f"plain by {err}")
@@ -1022,10 +1046,12 @@ def phase_e(device) -> tuple[dict, dict]:
                 got = out[:, :p.height, :p.width].cpu().numpy()
                 check(np.array_equal(got, frames),
                       f"phase E {name} {label}: differs from the frames")
-        print(f"phase E ok: {name}: S1 and S2 {', '.join(ablate_decode.VARIANTS)}"
+        print(f"phase E ok: {name}: S1 {', '.join(strips.FORMS)} and S2 "
+              f"{', '.join(ablate_decode.VARIANTS)}"
               f" == plain{' == frames' if frames is not None else ''} "
-              f"({p.offsets.numel()} blocks, bw {p.bw}, {lut.num_t2} T2 "
-              f"tables, {len(ablate_decode.pruned_terms(p.bounds, p.adj)[0])} "
+              f"({p.offsets.numel()} blocks, bw {p.bw}, T2 tables "
+              f"{tabs['lut'].num_t2} at 8/8, {p.table.num_t2} at 11/5, "
+              f"{len(ablate_decode.pruned_terms(p.bounds, p.adj)[0])} "
               "compare terms)")
     for v, x in rates.items():
         out = int16_rate.int16_rate(x, v)
@@ -1036,7 +1062,7 @@ def phase_e(device) -> tuple[dict, dict]:
     print(f"phase E ok: S3 {', '.join(int16_rate.VARIANTS)} on {RATE_SMALL} "
           "elements == plain")
     counts = read_launches()
-    expected = expect(decode_strips=len(cases),
+    expected = expect(decode_strips=len(cases) * len(strips.FORMS),
                       ablate_decode=len(cases) * len(ablate_decode.VARIANTS),
                       int16_rate=len(rates))
     check(counts == expected,
@@ -3328,9 +3354,9 @@ def image_timings(device, card: str) -> None:
 
 def probe_batches(frames: np.ndarray, device):
     """VARIANTS staged batches of the 30x2048x1536 ``frames`` in frame-order
-    rotations (one table, distinct bitstreams) -> (preps, the table's lut)."""
+    rotations (one table, distinct bitstreams) -> (preps, S2's tables of
+    each)."""
     from metalhuffman_tpu_torch.models import frame_stream as fs
-    from metalhuffman_tpu_torch.probes import ablate_decode
 
     preps, widths = [], None
     for v in range(VARIANTS):
@@ -3340,15 +3366,74 @@ def probe_batches(frames: np.ndarray, device):
         check(np.array_equal(stream.widths, widths),
               "timed probe inputs: the table differs between rotations")
         preps.append(fs.prepare_shared(stream, *FULL, device=device))
-    return preps, ablate_decode.lut_tables(widths, device)
+    shared = probe_tables(preps[0], widths, device)
+    return preps, [{**shared, "table": p.table} for p in preps]
+
+
+HOST_CALLS = 50  # B1 calls enqueued back to back per host-clock round
+HOST_ROUNDS = 7
+
+
+def wrapper_host_us(p, card: str) -> dict:
+    """Host us per B1 call enqueued back to back on a staged 30x2048x1536
+    batch (host clock over HOST_CALLS calls, median of HOST_ROUNDS rounds
+    taken in turns, the card catching up between rounds): through
+    ``decode_images`` (checks, ``torch.empty``, the stream, ctypes) and
+    through its C entry alone with every argument made beforehand. The
+    difference is the most that cutting the wrapper's host work can save
+    per call."""
+    import torch
+
+    from metalhuffman_tpu_torch import _build
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    t = p.num_frames
+    out = torch.empty((t, p.bh * 8, p.bw * 8), dtype=torch.uint8,
+                      device=p.words.device)
+    entry = _build.lib("decode_images").mht_decode_images
+    c_args = (p.words.data_ptr(), p.words.numel(), p.offsets.data_ptr(),
+              p.offsets.numel(), p.bh, p.bw, p.table.entries.data_ptr(),
+              p.table.entries.numel(), int(p.table.t2_in_smem), 1,
+              out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+
+    def wrapper():
+        decode_cuda.decode_images(p.words, p.offsets, p.symbols, p.bounds,
+                                  p.adj, num_frames=t, bh=p.bh, bw=p.bw,
+                                  delta=True, table=p.table)
+
+    def c_entry():
+        check(entry(*c_args) == 0, "host timing: the C entry failed")
+
+    fns = {"decode_images": wrapper, "C entry": c_entry}
+    per = {name: [] for name in fns}
+    for _ in range(HOST_ROUNDS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            per[name].append((time.perf_counter() - t0) * 1e6 / HOST_CALLS)
+    torch.cuda.synchronize()
+    med = {}
+    for name, us in per.items():
+        us.sort()
+        med[name] = us[len(us) // 2]
+        print(f"host B1 {name} photo 30x2048x1536: median {med[name]:.2f} us "
+              f"per enqueued call of {HOST_ROUNDS} rounds of {HOST_CALLS} "
+              f"(min {us[0]:.2f}, max {us[-1]:.2f}), host clock, on {card}")
+    added = med["decode_images"] - med["C entry"]
+    print(f"host B1: the wrapper adds {added:.2f} us per call to its C "
+          "entry's")
+    return med
 
 
 def probe_timings(device, card: str) -> dict:
     """Times of B1, S1 and every S2 variant in interleaved rounds on 4 staged
     30x2048x1536 photo batches and 4 synthetic ones, after holding each
-    equal to the plain version on every input; of every S3 variant and the
-    int32 plain chain on 2^22 elements; the S3 kernels' SASS opcodes.
-    Returns the probes' JSON entries (launches left 0)."""
+    equal to the plain version on every input, with each launch's CUDA
+    blocks per SM and registers; of every S3 variant and the int32 plain
+    chain on 2^22 elements; the SASS opcodes of the S3 kernels and of S2's
+    b1 family. Returns the probes' JSON entries (launches left 0)."""
     import torch
 
     from metalhuffman_tpu_torch.ops import decode_cuda
@@ -3360,7 +3445,7 @@ def probe_timings(device, card: str) -> dict:
     t, h, w = FULL
     for content, frames in (("photo", photo_frames(h, w, t)),
                             ("synthetic", synthetic(t, h, w))):
-        preps, lut = probe_batches(frames, device)
+        preps, tabs = probe_batches(frames, device)
 
         def args(i):
             p = preps[i]
@@ -3375,7 +3460,8 @@ def probe_timings(device, card: str) -> dict:
         def variant(v):
             def run(i):
                 a, g = args(i)
-                return ablate_decode.ablate_decode(*a, **g, variant=v, lut=lut)
+                return ablate_decode.ablate_decode(*a, **g, variant=v,
+                                                   **tabs[i])
             return run
 
         def b1(i):
@@ -3383,9 +3469,15 @@ def probe_timings(device, card: str) -> dict:
             return decode_cuda.decode_images(*a, **g, delta=True,
                                              table=preps[i].table)
 
+        def s1(prefetch):
+            def run(i):
+                a, g = args(i)
+                return strips.decode_strips(*a, **g, table=preps[i].table,
+                                            prefetch=prefetch)
+            return run
+
         fns = {"B1": b1,
-               "S1 strips": lambda i: strips.decode_strips(*args(i)[0],
-                                                           **args(i)[1]),
+               **{f"S1 {f}": s1(pf) for f, pf in strips.FORMS.items()},
                **{f"S2 {v}": variant(v) for v in ablate_decode.VARIANTS}}
         for i, p in enumerate(preps):
             plain = b1_plain(p)
@@ -3394,32 +3486,58 @@ def probe_timings(device, card: str) -> dict:
                         if label == "S2 xorfold" else plain)
                 check(torch.equal(fn(i), want), f"timed {content} input {i}: "
                       f"{label} differs from the plain version")
-        report_shape(f"B1 {content} 30x2048x1536", "decode_images", preps[0])
-        print(f"full-size check ok: B1, S1, S2 {', '.join(ablate_decode.VARIANTS)}"
+        p0, n0 = preps[0], preps[0].offsets.numel()
+        report_shape(f"B1 {content} 30x2048x1536", "decode_images", p0)
+        shapes = {"B1": decode_cuda.launch_shape(
+                      "decode_images", p0.words.numel(), n0, p0.table),
+                  **{f"S1 {f}": strips.launch_shape(n0, p0.table, pf)
+                     for f, pf in strips.FORMS.items()},
+                  **{f"S2 {v}": ablate_decode.launch_shape(
+                      v, n0, p0.bounds, p0.adj, **tabs[0])
+                     for v in ablate_decode.VARIANTS}}
+        spans = strips.cta_spans(p0.offsets, p0.words.numel())
+        span_bytes = 4 * (spans[:, 1] - spans[:, 0]).double()
+        print(f"full-size check ok: B1, S1 {', '.join(strips.FORMS)}, S2 "
+              f"{', '.join(ablate_decode.VARIANTS)}"
               f" == plain on {VARIANTS} staged {content} 30x2048x1536 inputs "
-              f"({lut.num_t2} T2 tables, "
-              f"{len(ablate_decode.pruned_terms(preps[0].bounds, preps[0].adj)[0])}"
-              " compare terms)")
+              f"(T2 tables {tabs[0]['lut'].num_t2} at 8/8, "
+              f"{p0.table.num_t2} at 11/5; "
+              f"{len(ablate_decode.pruned_terms(p0.bounds, p0.adj)[0])}"
+              f" compare terms; S1's code spans mean {span_bytes.mean():.0f} "
+              f"B, max {span_bytes.max():.0f} B)")
         times = measure_interleaved(fns, len(preps))
-        bms, by = bound(f"B1 {content} 30x2048x1536", preps[0], frames.size)
+        bms, by = bound(f"B1 {content} 30x2048x1536", p0, frames.size)
         for label, ms in times.items():
-            med = median(ms)
+            med, sh = median(ms), shapes[label]
             print(f"time {label} {content} 30x2048x1536: median {med:.4f} ms "
                   f"of {len(ms)} interleaved rounds (min {ms[0]:.4f}, max "
                   f"{ms[-1]:.4f}), {frames.size / med / 1e6:.3f} GB/s decoded, "
-                  f"{100 * bms / med:.1f} % of the bound, on {card}")
+                  f"{100 * bms / med:.1f} % of the bound, "
+                  f"{sh['ctas_per_sm']} CTAs/SM, grid {sh['grid']}, "
+                  f"{sh['registers']} registers, {sh['local_bytes']} local "
+                  f"bytes, on {card}")
+        b1_ms, y_ms = times["B1"], times["S2 b1"]
+        inside = b1_ms[0] <= median(y_ms) <= b1_ms[-1]
+        print(f"yardstick {content}: S2 b1 median {median(y_ms):.4f} ms "
+              f"{'inside' if inside else 'OUTSIDE'} B1's spread "
+              f"{b1_ms[0]:.4f}-{b1_ms[-1]:.4f} ms")
         if content == "photo":
+            wrapper_host_us(p0, card)
             plain_ms = timed("S1/S2 plain (B1's) photo 30x2048x1536",
                              b1_plain, preps, card, frames.size)
             common = dict(max_abs_err=0, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by)
-            entries["decode_strips"] = dict(ms=median(times["S1 strips"]),
-                                            **common)
+            entries["decode_strips"] = dict(
+                ms=median(times["S1 strips"]), **common,
+                variants={f: median(times[f"S1 {f}"]) for f in strips.FORMS})
             entries["ablate_decode"] = dict(
                 ms=median(times["S2 base"]), **common,
                 variants={v: median(times[f"S2 {v}"])
                           for v in ablate_decode.VARIANTS})
-        del preps, lut
+        del preps, tabs
+    for v, counts in ablate_decode.sass_opcodes().items():
+        print(f"SASS S2 {v}: {sum(counts.values())} instructions: " + ", ".join(
+            f"{op} {k}" for op, k in counts.most_common()))
 
     n = int16_rate.ELEMENTS
     xs = {v: int16_rate.make_input(n, v, device) for v in int16_rate.VARIANTS}

@@ -65,26 +65,29 @@ _ARGTYPES = {
     "encode_stream": [_ptr, _i64, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _ptr],
     # symbols, n_blocks, table, wmax, rows, stream
     "encode_rows": [_ptr, _i64, _ptr, _int, _ptr, _ptr],
-    # words, n_words, offsets, n_blocks, bh, bw, bounds, adj, symbols, out,
-    # stream
-    "decode_strips": [_ptr, _i64, _ptr, _i64, _i64, _i64, *_TABLE, _ptr, _ptr,
-                      _ptr],
+    # words, n_words, offsets, n_blocks, bw, table, table_entries, t2_smem,
+    # prefetch, out, stream
+    "decode_strips": [_ptr, _i64, _ptr, _i64, _i64, *_LUT, _int, _ptr, _ptr],
     # words, n_words, offsets, n_blocks, bh, bw, bounds, adj, symbols,
-    # variant, n_terms, term_bounds, term_incs, term_base, t1, t2, n_t2, out,
-    # stream
+    # variant, n_terms, term_bounds, term_incs, term_base, t1, t2, n_t2,
+    # table, table_entries, t2_smem, out, stream
     "ablate_decode": [_ptr, _i64, _ptr, _i64, _i64, _i64, *_TABLE, _ptr, _int,
-                      _int, *_TABLE, ctypes.c_int32, _ptr, _ptr, _int, _ptr,
-                      _ptr],
+                      _int, *_TABLE, ctypes.c_int32, _ptr, _ptr, _int, *_LUT,
+                      _ptr, _ptr],
     # x, n, variant, step, thresh, out, stream
     "int16_rate": [_ptr, _i64, _int, ctypes.c_int32, ctypes.c_int32, _ptr,
                    _ptr],
 }
 #: the decode kernels' ``mht_<name>_shape`` (launch shape without a launch):
 #: [n_words,] n_blocks, [num_steps,] table_entries, t2_smem, mode,
-#: int shape[6]
+#: int shape[6]; the probes': n_blocks, table_entries, t2_smem, prefetch,
+#: shape (S1),
+#: n_blocks, variant, n_terms, n_t2, table_entries, t2_smem, shape (S2)
 SHAPE_ARGTYPES = {
     "decode_images": [_i64, _i64, _int, _int, _ptr],
     "decode_blocks": [_i64, _i64, _int, _i64, _int, _int, _ptr],
+    "decode_strips": [_i64, _i64, _int, _int, _ptr],
+    "ablate_decode": [_i64, _int, _int, _int, _i64, _int, _ptr],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,19 +1,20 @@
-// Timing variants of the image decode (B1, decode_images.cu) on Hopper: a probe
-// that ranked what bounded B1's interval body, each variant writing the same
-// bytes. B1 has since been redesigned around the lookup table; the probe keeps
-// measuring the interval body it started from, so `base` is the yardstick of
-// B1 before and after its redesign.
+// Timing variants of the image decode (B1, decode_images.cu) on Hopper: a
+// probe that ranks changes to B1's body, each variant writing the same bytes.
 //
-// Replaces the TPU ablation kernel scratch/ablate_decode.py::build_variant (body
-// make_kernel_variant, :38-198), which timed variants of the production Pallas
-// kernel, each byte-equal to its base. Here every variant decodes a shared-table
-// batch of 8x8 blocks with the 1-D delta (the only precoder the TPU ablation
-// ran, :221) and, except xorfold, writes B1's (T, bh*8, bw*8) uint8 image. The
-// variants, each changing one thing of the interval body:
+// Replaces the TPU ablation kernel scratch/ablate_decode.py::build_variant
+// (body make_kernel_variant, :38-198), which timed variants of the production
+// Pallas kernel, each byte-equal to its base. Here every variant decodes a
+// shared-table batch of 8x8 blocks with the 1-D delta (the only precoder the
+// TPU ablation ran, :221) and, except xorfold, writes B1's (T, bh*8, bw*8)
+// uint8 image.
 //
-//   base     B1's body before its lookup-table redesign: decode_group's 15
-//            interval compares per symbol and the adj value read from shared
-//            memory (the TPU's gatheradj), one CUDA block per 256 blocks.
+// Two families. The first five variants keep the interval body B1 ran before
+// its lookup-table redesign, the record of what bounded it then (PERF.md); each
+// changes one thing of that body:
+//
+//   base     the interval body: decode_group's 15 interval compares per symbol
+//            and the adj value read from shared memory (the TPU's gatheradj),
+//            one CUDA block per 256 blocks.
 //   pruned   compares only for the code lengths the table has, at most 15
 //            distinct bounds 0 < B < 2^16, with the TPU's fused accumulator
 //            acc = w + 256*(adj + 2^16) (make_kernel_variant :155-162) and no
@@ -33,6 +34,39 @@
 //            block's 8 row words, in place of 8 row stores a frame row apart:
 //            the store ablation. Output (n_blocks,) u64 in raster block order.
 //
+// The b1 family starts from B1 as it is now, decode_images_kernel<1, true>: the
+// same grid, the same bulk copy of the 11/5 lookup table into shared memory
+// (decode_common.cuh::stage_lut) on the same launch path (launch_facts), the
+// same 8-byte row stores. Each variant changes one thing:
+//
+//   b1           B1's body unchanged, through decode_group_lut: the yardstick,
+//                which must time as B1 itself does in the same rounds.
+//   b1_esc32     u32 entries: a T1 escape holds its secondary table's index in
+//                the whole table (0x80000000 | (2^11 + 32 t)), so the escape
+//                path is one lop3 ((e & 0x7fffffff) | (window & 31)) and one
+//                load, in place of B1's mask, shift, mask, OR and load. T1 is
+//                8 KB, T2 at most 24 KB for a complete code.
+//   b1_refill64  the refill from two aligned 8-byte loads of the 128 bits at
+//                pos & ~63, in place of three 4-byte loads; the words wanted
+//                are picked by bit 5 of pos (the u32 words are native values of
+//                big-endian words, so a u64 holds its two words swapped: the
+//                pick is register naming, no instruction).
+//   b1_row8      8 symbols per refill: a 128-bit window from three aligned
+//                8-byte loads, one refill per block row in place of two; the
+//                second 4 symbols read the window shifted by the bits the first
+//                took (at most 64, so 8 symbols of 16 bits just fit).
+//   b1_esc32_row8  b1_esc32's table and b1_row8's refill together: the two
+//                changes that each gained in one content (PERF.md), joined.
+//   b1_s1smem    b1 with S1's span buffer and strip (decode_strips.cu) as
+//                unused shared memory beside the table: B1 at S1's 4 CUDA
+//                blocks per SM, the control that splits S1's time into
+//                what its residency costs and what its bulk copies move.
+//
+// The wider refills read further ahead than B1's; near the buffer's end (and
+// for B1's clamp of a malformed position) they take B1's refill, a branch
+// that a well-formed stream takes only in its last words, so every variant
+// writes B1's bytes on any stream.
+//
 // The TPU's stride2/4/8 (one-hot refill scans by stride) and maxw's refill
 // range (bounded by the widest code) have no counterpart: a CUDA thread reads
 // its words at their address.
@@ -40,9 +74,10 @@
 // What the probe tells: the time of base less that of xorfold is what the
 // interval body's row stores cost; base against pruned and lut is what the
 // compare chain costs; base against ilp2 is what the latency of one serial
-// chain per thread costs. What bounds each variant on the H100 is what bounded
-// the interval body, the decode's instructions, less what the variant removes
-// (PERF.md).
+// chain per thread costs. Each b1 variant against b1, in the same rounds, is
+// what its change of B1's body would move. What bounds each variant on the
+// H100 is what bounds its family's body, the decode's instructions per symbol,
+// less what the variant removes (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,6 +91,11 @@ using mht::kThreads;
 
 // the variant ids of probes/ablate_decode.py::VARIANTS
 constexpr int kBase = 0, kPruned = 1, kLut = 2, kIlp2 = 3, kXorfold = 4;
+constexpr int kB1 = 5, kEsc32 = 6, kRefill64 = 7, kRow8 = 8, kEsc32Row8 = 9,
+              kB1S1Smem = 10;
+// b1_s1smem's padding: decode_strips.cu's span buffer and strip
+// (kSpanWords words and 8 rows of kSlots u64), beside the table
+constexpr uint32_t kS1ExtraBytes = 4 * 8200 + 8 * (256 + 8) * 8;
 constexpr int kMaxTerms = 15;
 // T2 goes to shared memory up to this size with T1 (no opt-in needed)
 constexpr int kLutSmemBytes = 48 * 1024;
@@ -219,8 +259,150 @@ ilp2_kernel(const uint32_t* __restrict__ words, uint64_t last_word,
   }
 }
 
+// ---- the b1 family -------------------------------------------------------
+
+// b1_esc32's escape: the secondary table's index in the whole table from an
+// escaping entry e = 0x80000000 | base (base a multiple of 32) and the window,
+// (e & 0x7fffffff) | (window & 31), as one lop3: with c = kEsc32Mask, each
+// bit is c ? (window & ~e) : e, truth table 0x58 (a = e, b = window).
+constexpr uint32_t kEsc32Mask = 0x80000000u | ((1u << mht::kK2) - 1);
+
+__device__ __forceinline__ uint32_t esc32_index(uint32_t e, uint32_t window) {
+  uint32_t i;
+  asm("lop3.b32 %0, %1, %2, %3, 0x58;"
+      : "=r"(i) : "r"(e), "r"(window), "r"(kEsc32Mask));
+  return i;
+}
+
+// decode_window_lut (1-D delta) through the u32 table: s_tab holds T1 and,
+// with T2_SMEM, T2; tab is the whole table in global memory.
+template <bool T2_SMEM>
+__device__ __forceinline__ uint32_t window_esc32(
+    uint64_t win, const int32_t* s_tab, const int32_t* __restrict__ tab,
+    uint32_t& prev, uint32_t& packed) {
+  uint32_t t = 0, out = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t window = (uint32_t)((win << t) >> 48);
+    int32_t e = s_tab[window >> mht::kK2];
+    if (e < 0) {
+      const uint32_t i = esc32_index((uint32_t)e, window);
+      e = T2_SMEM ? s_tab[i] : __ldg(tab + i);
+    }
+    emit((uint32_t)e & 0xFF, k, prev, out);
+    t += (uint32_t)e >> 8;
+  }
+  packed = out;
+  return t;
+}
+
+// The 64 bits left-justified at bit s of word w0, from words w0, w1, w2
+// (mht::refill's arithmetic on words it was handed).
+__device__ __forceinline__ uint64_t window_at(uint32_t w0, uint32_t w1,
+                                              uint32_t w2, uint32_t s) {
+  // (uint64_t)w2 >> (32 - s) is defined for s == 0 in 64 bits
+  return ((((uint64_t)w0 << 32) | w1) << s) | ((uint64_t)w2 >> (32 - s));
+}
+
+// B1's refill (mht::refill) from two aligned 8-byte loads. fast_last is the
+// last word index at which both loads stay inside the buffer (n_words - 3
+// for an even n_words, n_words - 4 for an odd one, so never past B1's
+// clamp; negative for a buffer too short for them); past it, B1's refill
+// with its clamp.
+__device__ __forceinline__ uint64_t refill64(const uint32_t* __restrict__ words,
+                                             uint64_t last_word,
+                                             int64_t fast_last, uint64_t pos) {
+  if ((int64_t)(pos >> 5) > fast_last) {
+    return mht::refill(words, last_word, pos);
+  }
+  const uint2* p = reinterpret_cast<const uint2*>(words) + (pos >> 6);
+  const uint2 a = p[0], b = p[1];
+  const bool odd = (pos & 32) != 0;
+  return window_at(odd ? a.y : a.x, odd ? b.x : a.y, odd ? b.y : b.x,
+                   (uint32_t)(pos & 31));
+}
+
+// One CUDA thread per 8x8 block, as decode_images_kernel<1, T2_SMEM>, with
+// its parameters in its order and its end-bit epilogue (the probe passes no
+// end pointer), so that b1 compiles to B1's code. V is kB1, kEsc32,
+// kRefill64, kRow8, kEsc32Row8 or kB1S1Smem. table: the u16 lookup table
+// (the u32 one for kEsc32 and kEsc32Row8), stage_bytes of it copied to
+// shared memory. fast_last: the last word index at which refill64's loads
+// stay in the buffer (kRefill64), or at which the three loads of a row's
+// refill do (n_words - 5 even, n_words - 6 odd).
+template <int V, bool T2_SMEM>
+__global__ void __launch_bounds__(kThreads)
+b1_kernel(const uint32_t* __restrict__ words, uint64_t last_word,
+          const uint32_t* __restrict__ offsets, uint32_t n_blocks,
+          uint32_t bh, uint32_t bw, const int16_t* __restrict__ table,
+          uint32_t stage_bytes, uint8_t* __restrict__ out,
+          int32_t* __restrict__ end, int64_t fast_last) {
+  extern __shared__ __align__(128) int16_t s_tab[];
+  __shared__ uint64_t bar;
+  mht::stage_lut(table, stage_bytes, s_tab, &bar);
+  const uint32_t b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= n_blocks) return;
+  const int16_t* t2 = (T2_SMEM ? s_tab : table) + (1 << mht::kK1);
+  const int32_t* s_tab32 = reinterpret_cast<const int32_t*>(s_tab);
+  const int32_t* tab32 = reinterpret_cast<const int32_t*>(table);
+
+  const int64_t row_bytes = (int64_t)bw * 8;
+  uint8_t* dst = mht::block_origin32(out, b, bh, bw);
+  const uint32_t start = offsets[b];
+  uint64_t pos = start;  // absolute bit position; may pass 2^32
+  uint32_t prev = 0;     // 1-D delta accumulator
+  constexpr bool kEsc = V == kEsc32 || V == kEsc32Row8;
+  constexpr bool kRow = V == kRow8 || V == kEsc32Row8;
+  // 4 symbols from the window at their first bit, by the variant's table
+  auto step = [&](uint64_t win, uint32_t& packed) -> uint32_t {
+    if constexpr (kEsc) {
+      return window_esc32<T2_SMEM>(win, s_tab32, tab32, prev, packed);
+    } else {
+      return mht::decode_window_lut<T2_SMEM, true>(win, s_tab, t2, prev,
+                                                   packed);
+    }
+  };
+#pragma unroll 1
+  for (int dy = 0; dy < 8; ++dy) {
+    uint32_t lo, hi;  // pixels 0..3 and 4..7 of block row dy
+    if (V == kB1 || V == kB1S1Smem) {
+      pos += mht::decode_group_lut<T2_SMEM, true>(words, last_word, pos, s_tab,
+                                                  t2, prev, lo);
+      pos += mht::decode_group_lut<T2_SMEM, true>(words, last_word, pos, s_tab,
+                                                  t2, prev, hi);
+    } else if (V == kEsc32) {
+      pos += step(mht::refill(words, last_word, pos), lo);
+      pos += step(mht::refill(words, last_word, pos), hi);
+    } else if (V == kRefill64) {
+      pos += step(refill64(words, last_word, fast_last, pos), lo);
+      pos += step(refill64(words, last_word, fast_last, pos), hi);
+    } else if (kRow && (int64_t)(pos >> 5) <= fast_last) {  // a row's 128 bits
+      const uint2* p = reinterpret_cast<const uint2*>(words) + (pos >> 6);
+      const uint2 a = p[0], b2 = p[1], c = p[2];
+      const bool odd = (pos & 32) != 0;
+      const uint32_t s = (uint32_t)(pos & 31);
+      const uint32_t w2 = odd ? b2.y : b2.x;
+      const uint64_t top = window_at(odd ? a.y : a.x, odd ? b2.x : a.y, w2, s);
+      const uint64_t low = window_at(w2, odd ? c.x : b2.y, odd ? c.y : c.x, s);
+      const uint32_t t = step(top, lo);
+      // the 64 bits at pos + t, 4 <= t <= 64 (every entry is 1..16 bits)
+      const uint64_t next = ((top << (t - 1)) << 1) | (low >> (64 - t));
+      pos += t + step(next, hi);
+    } else {  // a row near the buffer's end: B1's two refills
+      pos += step(mht::refill(words, last_word, pos), lo);
+      pos += step(mht::refill(words, last_word, pos), hi);
+    }
+    *reinterpret_cast<uint64_t*>(dst + dy * row_bytes) =
+        ((uint64_t)hi << 32) | lo;
+  }
+  if (end != nullptr) end[b] = mht::row_local_end(start, pos);
+}
+
+// ---- launches --------------------------------------------------------------
+
 struct Launch {
   const uint32_t* words;
+  int64_t n_words;
   uint64_t last_word;
   const uint32_t* offsets;
   int64_t n_blocks, bh, bw;
@@ -230,41 +412,178 @@ struct Launch {
   const uint16_t* t1;
   const uint16_t* t2;
   int n_t2;
+  const int16_t* table;  // the b1 family's lookup table
+  uint32_t stage_bytes;  // and the bytes of it staged in shared memory
   uint8_t* out;
   cudaStream_t stream;
 };
 
+unsigned grid_of(int64_t n_blocks, int per_cta) {
+  return (unsigned)((n_blocks + per_cta - 1) / per_cta);
+}
+
+// Launch `kernel` over `grid` 256-thread CUDA blocks with `smem` bytes of
+// dynamic shared memory, or with shape_only only describe that launch;
+// per_sm is its CUDA blocks per SM when known (0: ask the runtime).
+template <typename... P, typename... A>
+int go(void (*kernel)(P...), unsigned grid, uint32_t smem, int per_sm,
+       bool shape_only, mht::GridShape* shape, cudaStream_t stream,
+       A... args) {
+  if (shape_only) {
+    shape->grid = (int)grid;
+    shape->dyn_smem = (int)smem;
+    shape->ctas_per_sm = per_sm;
+    if (per_sm == 0) {
+      const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &shape->ctas_per_sm, kernel, kThreads, smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return mht::kernel_attributes(kernel, shape);
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <int V, int N, bool T2_SMEM>
-void launch(const Launch& a, size_t smem) {
-  const unsigned grid = (unsigned)((a.n_blocks + kThreads - 1) / kThreads);
-  ablate_kernel<V, N, T2_SMEM><<<grid, kThreads, smem, a.stream>>>(
-      a.words, a.last_word, a.offsets, a.n_blocks, a.bh, a.bw, a.tab, a.ptab,
-      a.symbols, a.t1, a.t2, a.n_t2, a.out);
+int run_interval(const Launch& a, uint32_t smem, bool shape_only,
+                 mht::GridShape* shape) {
+  return go(ablate_kernel<V, N, T2_SMEM>, grid_of(a.n_blocks, kThreads), smem,
+            0, shape_only, shape, a.stream, a.words, a.last_word, a.offsets,
+            a.n_blocks, a.bh, a.bw, a.tab, a.ptab, a.symbols, a.t1, a.t2,
+            a.n_t2, a.out);
 }
 
 // pruned: a switch over the term count into its template instance
 template <int N = 0>
-void launch_pruned(const Launch& a, int n_terms) {
+int run_pruned(const Launch& a, int n_terms, bool shape_only,
+               mht::GridShape* shape) {
   if constexpr (N <= kMaxTerms) {
-    if (n_terms == N) {
-      launch<kPruned, N, false>(a, 0);
-    } else {
-      launch_pruned<N + 1>(a, n_terms);
-    }
+    if (n_terms == N) return run_interval<kPruned, N, false>(a, 0, shape_only,
+                                                             shape);
+    return run_pruned<N + 1>(a, n_terms, shape_only, shape);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The b1 family on B1's launch path: launch_facts opts the kernel in to the
+// table's shared memory and knows its occupancy. b1_s1smem launches with S1's
+// shared memory per CUDA block beside the table, unused, so at S1's
+// residency.
+template <int V, bool T2_SMEM>
+int run_b1(const Launch& a, bool shape_only, mht::GridShape* shape) {
+  static mht::KernelCache cache;
+  auto* kernel = b1_kernel<V, T2_SMEM>;
+  const uint32_t pad = V == kB1S1Smem ? kS1ExtraBytes : 0;
+  const uint32_t smem = a.stage_bytes + pad;
+  int sms = 0, per_sm = 0;
+  const int err = mht::launch_facts(kernel, cache, smem, &sms, &per_sm,
+                                    mht::kT2SmemMaxBytes + pad);
+  if (err) return err;
+  // the last word index at which the variant's aligned loads stay in the
+  // buffer: refill64 reads up to word (wi | 1) + 2, a row's refill up to
+  // (wi | 1) + 4
+  const int64_t fast_last =
+      a.n_words - (V == kRow8 || V == kEsc32Row8 ? 5 : 3) - (a.n_words & 1);
+  return go(kernel, grid_of(a.n_blocks, kThreads), smem, per_sm,
+            shape_only, shape, a.stream, a.words, a.last_word, a.offsets,
+            (uint32_t)a.n_blocks, (uint32_t)a.bh, (uint32_t)a.bw, a.table,
+            a.stage_bytes, a.out, static_cast<int32_t*>(nullptr), fast_last);
+}
+
+template <int V>
+int dispatch_b1(const Launch& a, int t2_smem, bool shape_only,
+                mht::GridShape* shape) {
+  return t2_smem ? run_b1<V, true>(a, shape_only, shape)
+                 : run_b1<V, false>(a, shape_only, shape);
+}
+
+// b1_esc32's table: u32 entries, T1 of 2^11 then secondary tables of 2^5;
+// the bytes staged (all of it with T2 in shared memory, else T1), or 0 when
+// the table is malformed.
+uint32_t esc32_stage_bytes(int64_t entries, int t2_smem) {
+  const int64_t t1 = (int64_t)1 << mht::kK1;
+  const int64_t per_t2 = (int64_t)1 << mht::kK2;
+  if (entries < t1 || (entries - t1) % per_t2 || (entries - t1) / per_t2 > t1) {
+    return 0;
+  }
+  const int64_t bytes = 4 * (t2_smem ? entries : t1);
+  if (t2_smem && bytes > (int64_t)mht::kT2SmemMaxBytes) return 0;
+  return (uint32_t)bytes;
+}
+
+int run(Launch& a, int variant, int n_terms, int64_t table_entries,
+        int t2_smem, bool shape_only, mht::GridShape* shape) {
+  if (variant >= kB1) {
+    // a block index, and each block row and column, fit in 32 bits, as in B1
+    a.stage_bytes = variant == kEsc32 || variant == kEsc32Row8
+                        ? esc32_stage_bytes(table_entries, t2_smem)
+                        : mht::lut_stage_bytes(table_entries, t2_smem);
+    if (a.n_blocks > INT32_MAX || a.bh * a.bw > INT32_MAX ||
+        a.stage_bytes == 0 ||
+        (variant >= kRefill64 && variant <= kEsc32Row8 &&
+         reinterpret_cast<uintptr_t>(a.words) % 8 != 0)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (variant == kB1) return dispatch_b1<kB1>(a, t2_smem, shape_only, shape);
+    if (variant == kEsc32) {
+      return dispatch_b1<kEsc32>(a, t2_smem, shape_only, shape);
+    }
+    if (variant == kRefill64) {
+      return dispatch_b1<kRefill64>(a, t2_smem, shape_only, shape);
+    }
+    if (variant == kRow8) {
+      return dispatch_b1<kRow8>(a, t2_smem, shape_only, shape);
+    }
+    if (variant == kEsc32Row8) {
+      return dispatch_b1<kEsc32Row8>(a, t2_smem, shape_only, shape);
+    }
+    return dispatch_b1<kB1S1Smem>(a, t2_smem, shape_only, shape);
+  }
+  switch (variant) {
+    case kBase:
+      return run_interval<kBase, 0, false>(a, 0, shape_only, shape);
+    case kPruned:
+      return run_pruned(a, n_terms, shape_only, shape);
+    case kLut: {
+      const uint32_t t2_bytes = (uint32_t)a.n_t2 * 256 * sizeof(uint16_t);
+      const uint32_t t1_bytes = 256 * sizeof(uint16_t);
+      if (t1_bytes + t2_bytes <= (uint32_t)kLutSmemBytes) {
+        return run_interval<kLut, 0, true>(a, t1_bytes + t2_bytes, shape_only,
+                                           shape);
+      }
+      return run_interval<kLut, 0, false>(a, t1_bytes, shape_only, shape);
+    }
+    case kIlp2:
+      return go(ilp2_kernel, grid_of(a.n_blocks, 2 * kThreads), 0, 0,
+                shape_only, shape, a.stream, a.words, a.last_word, a.offsets,
+                a.n_blocks, a.bh, a.bw, a.tab, a.symbols, a.out);
+    default:
+      return run_interval<kXorfold, 0, false>(a, 0, shape_only, shape);
+  }
+}
+
+bool bad_variant(int variant, int n_terms, int n_t2) {
+  return variant < kBase || variant > kB1S1Smem || n_terms < 0 ||
+         n_terms > kMaxTerms || (variant == kLut && (n_t2 < 1 || n_t2 > 256));
 }
 
 }  // namespace
 
 // Decode n_blocks = T*bh*bw 8x8 blocks with the 1-D delta, as variant
-// `variant` (0 base, 1 pruned, 2 lut, 3 ilp2, 4 xorfold). The arguments are
-// decode_images.cu's (words, offsets, the interval table, symbols, out), plus:
-// pruned's n_terms (0..15) distinct bounds `term_bounds`, their increments
-// `term_incs` and `term_base` (see PrunedTable; the other variants pass 0
-// terms and NULL arrays); lut's T1 (256 u16 entries)
-// and T2 (n_t2 tables of 256 u16, n_t2 >= 1) on the device. out: the
-// (T, bh*8, bw*8) uint8 image, or for xorfold n_blocks u64. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// `variant` (0 base, 1 pruned, 2 lut, 3 ilp2, 4 xorfold, 5 b1, 6 b1_esc32,
+// 7 b1_refill64, 8 b1_row8, 9 b1_esc32_row8, 10 b1_s1smem). The arguments
+// are decode_images.cu's (words, offsets, out) and the interval table
+// (bounds, adj, symbols), plus: pruned's n_terms (0..15) distinct bounds
+// `term_bounds`, their increments `term_incs` and `term_base` (see
+// PrunedTable; the other variants pass 0 terms and NULL arrays); lut's T1
+// (256 u16 entries) and T2 (n_t2 tables of 256 u16, n_t2 >= 1) on the
+// device; the b1 family's lookup table on the device, 16-byte aligned,
+// table_entries entries (u16 as mht_decode_images takes it, u32 for b1_esc32
+// and b1_esc32_row8) and t2_smem (1: the whole table in shared memory, at
+// most 64 KB; 0: T2 through L1). b1_refill64, b1_row8 and b1_esc32_row8 need
+// 8-byte aligned words. out: the (T, bh*8, bw*8) uint8 image, or for xorfold
+// n_blocks u64. Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int mht_ablate_decode(const void* words, int64_t n_words,
                                  const void* offsets, int64_t n_blocks,
                                  int64_t bh, int64_t bw,
@@ -273,11 +592,12 @@ extern "C" int mht_ablate_decode(const void* words, int64_t n_words,
                                  const uint32_t* term_bounds,
                                  const int32_t* term_incs, int32_t term_base,
                                  const void* t1, const void* t2, int n_t2,
-                                 void* out, void* stream) {
-  if (n_words < 3 || n_blocks <= 0 || bh <= 0 || bw <= 0 || variant < kBase ||
-      variant > kXorfold || n_terms < 0 || n_terms > kMaxTerms ||
-      (variant == kLut && (t1 == nullptr || t2 == nullptr || n_t2 < 1 ||
-                           n_t2 > 256))) {
+                                 const void* table, int64_t table_entries,
+                                 int t2_smem, void* out, void* stream) {
+  if (n_words < 3 || n_blocks <= 0 || bh <= 0 || bw <= 0 ||
+      bad_variant(variant, n_terms, n_t2) ||
+      (variant == kLut && (t1 == nullptr || t2 == nullptr)) ||
+      (variant >= kB1 && table == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Launch a{};
@@ -291,6 +611,7 @@ extern "C" int mht_ablate_decode(const void* words, int64_t n_words,
   }
   a.ptab.base = term_base;
   a.words = static_cast<const uint32_t*>(words);
+  a.n_words = n_words;
   a.last_word = (uint64_t)(n_words - 3);
   a.offsets = static_cast<const uint32_t*>(offsets);
   a.n_blocks = n_blocks;
@@ -300,35 +621,33 @@ extern "C" int mht_ablate_decode(const void* words, int64_t n_words,
   a.t1 = static_cast<const uint16_t*>(t1);
   a.t2 = static_cast<const uint16_t*>(t2);
   a.n_t2 = n_t2;
+  a.table = static_cast<const int16_t*>(table);
   a.out = static_cast<uint8_t*>(out);
   a.stream = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case kBase:
-      launch<kBase, 0, false>(a, 0);
-      break;
-    case kPruned:
-      launch_pruned(a, n_terms);
-      break;
-    case kLut: {
-      const size_t t2_bytes = (size_t)n_t2 * 256 * sizeof(uint16_t);
-      const size_t t1_bytes = 256 * sizeof(uint16_t);
-      if (t1_bytes + t2_bytes <= (size_t)kLutSmemBytes) {
-        launch<kLut, 0, true>(a, t1_bytes + t2_bytes);
-      } else {
-        launch<kLut, 0, false>(a, t1_bytes);
-      }
-      break;
-    }
-    case kIlp2: {
-      const unsigned grid =
-          (unsigned)((n_blocks + 2 * kThreads - 1) / (2 * kThreads));
-      ilp2_kernel<<<grid, kThreads, 0, a.stream>>>(
-          a.words, a.last_word, a.offsets, n_blocks, bh, bw, a.tab, a.symbols,
-          a.out);
-      break;
-    }
-    default:
-      launch<kXorfold, 0, false>(a, 0);
+  mht::GridShape shape;
+  return run(a, variant, n_terms, table_entries, t2_smem, false, &shape);
+}
+
+// The launch mht_ablate_decode makes for these arguments, and the kernel's
+// occupancy, registers and local bytes, into shape[6] (mht::GridShape's
+// fields in order). Launches nothing; returns a CUDA error (0 on success).
+extern "C" int mht_ablate_decode_shape(int64_t n_blocks, int variant,
+                                       int n_terms, int n_t2,
+                                       int64_t table_entries, int t2_smem,
+                                       int* shape) {
+  if (n_blocks <= 0 || bad_variant(variant, n_terms, n_t2)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  Launch a{};
+  a.n_words = 3;
+  a.n_blocks = n_blocks;
+  a.bh = a.bw = 1;
+  a.n_t2 = n_t2;
+  mht::GridShape s;
+  const int err = run(a, variant, n_terms, table_entries, t2_smem, true, &s);
+  if (err) return err;
+  const int v[6] = {s.ctas_per_sm, s.grid, s.dyn_smem, s.static_smem,
+                    s.registers, s.local_bytes};
+  for (int i = 0; i < 6; ++i) shape[i] = v[i];
+  return 0;
 }

@@ -9,10 +9,13 @@
 //   decode_blocks.cu), so the two cannot drift: one lookup in a two-level
 //   table that tabulates the interval decode below on every 16-bit window
 //   (ops/decode_cuda.py::lookup_entries), staged once per CUDA block by
-//   stage_lut;
+//   stage_lut. Its symbol loop, decode_window_lut, is apart from the refill
+//   so that the probes of B1 (decode_strips.cu, ablate_decode.cu's b1
+//   family) can feed it windows read another way;
 // - decode_group, the canonical-interval arithmetic the TPU kernel runs (15
-//   compares per symbol): the body the probes (decode_strips.cu,
-//   ablate_decode.cu) measure, and the plain versions' arithmetic.
+//   compares per symbol): the plain versions' arithmetic, and the body of
+//   ablate_decode.cu's first five variants, which keep the record of B1
+//   before its lookup-table redesign.
 //
 // Both give the same width and symbol on every window, so the same bytes and
 // end bits on any stream, malformed ones included.
@@ -214,18 +217,18 @@ __device__ __forceinline__ void stage_lut(const int16_t* __restrict__ src,
   }
 }
 
-// Decode the 4 symbols that start at absolute bit `pos`, as decode_group does,
-// through the lookup table: T1 in shared memory (s_t1), T2 in shared memory
-// (T2_SMEM) or global memory read through L1. The refill, the bits consumed
-// and `packed` are decode_group's. The entries are read as signed 16-bit
-// values, so the escape bit is the sign and its test one compare (the
-// unsigned test took an extra instruction per symbol in ptxas's code).
+// Decode 4 symbols from `win`, the 64-bit window left-justified at their
+// first bit, through the lookup table: T1 in shared memory (s_t1), T2 in
+// shared memory (T2_SMEM) or global memory read through L1. Returns the bits
+// they took; `packed` gets them little-endian (symbol k in byte k), with
+// DELTA the running sum `prev` of the 1-D delta, carried across calls. The
+// entries are read as signed 16-bit values, so the escape bit is the sign
+// and its test one compare (the unsigned test took an extra instruction per
+// symbol in ptxas's code).
 template <bool T2_SMEM, bool DELTA>
-__device__ __forceinline__ uint32_t decode_group_lut(
-    const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
-    const int16_t* s_t1, const int16_t* __restrict__ t2, uint32_t& prev,
-    uint32_t& packed) {
-  const uint64_t win = refill(words, last_word, pos);
+__device__ __forceinline__ uint32_t decode_window_lut(
+    uint64_t win, const int16_t* s_t1, const int16_t* __restrict__ t2,
+    uint32_t& prev, uint32_t& packed) {
   uint32_t t = 0;  // bits consumed in this group, <= 48 before symbol 3
   uint32_t out = 0;
 #pragma unroll
@@ -247,6 +250,17 @@ __device__ __forceinline__ uint32_t decode_group_lut(
   }
   packed = out;
   return t;
+}
+
+// Decode the 4 symbols that start at absolute bit `pos`, as decode_group does,
+// through the lookup table: the refill and decode_window_lut.
+template <bool T2_SMEM, bool DELTA>
+__device__ __forceinline__ uint32_t decode_group_lut(
+    const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
+    const int16_t* s_t1, const int16_t* __restrict__ t2, uint32_t& prev,
+    uint32_t& packed) {
+  return decode_window_lut<T2_SMEM, DELTA>(refill(words, last_word, pos),
+                                           s_t1, t2, prev, packed);
 }
 
 // ---- launches ------------------------------------------------------------------
@@ -276,12 +290,13 @@ struct KernelCache {
 };
 
 // The current device's SM count and `kernel`'s resident 256-thread CUDA
-// blocks per SM at `dyn_smem` bytes of table, after opting the kernel in to
-// kT2SmemMaxBytes of dynamic shared memory on that device. Returns a CUDA
-// error (0 on success).
+// blocks per SM at `dyn_smem` bytes of dynamic shared memory, after opting
+// the kernel in to `max_dyn` bytes of it (the table's kT2SmemMaxBytes unless
+// the kernel keeps more there) on that device. Returns a CUDA error (0 on
+// success).
 template <typename Kernel>
 int launch_facts(Kernel kernel, KernelCache& cache, uint32_t dyn_smem,
-                 int* sms, int* per_sm) {
+                 int* sms, int* per_sm, uint32_t max_dyn = kT2SmemMaxBytes) {
   static std::atomic<int> sm_count[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -296,7 +311,7 @@ int launch_facts(Kernel kernel, KernelCache& cache, uint32_t dyn_smem,
   if (!cache.opted[dev].load()) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kT2SmemMaxBytes);
+                               (int)max_dyn);
     if (err != cudaSuccess) return (int)err;
     cache.opted[dev].store(1);
   }

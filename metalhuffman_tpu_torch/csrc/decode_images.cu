@@ -33,12 +33,14 @@
 // What bounds it on the H100: the instructions it runs per symbol, not
 // bytes (it runs at about 40 % of its byte bound, PERF.md). Before this
 // design the 15-compare interval chain of each symbol held B1 at ~13 % of
-// that bound; the probe of csrc/ablate_decode.cu, whose `base` is that body,
-// keeps measuring it. The lookup takes the chain away: what ptxas leaves per
-// symbol is the window extraction, the T1 load and its sign test, the width
-// and the delta, plus the escape path (mask, index, T2 load), which it
-// predicates and so runs for every symbol, escaping or not; and per group
-// of 4 symbols the refill's three word loads. A warp-uniform branch around
+// that bound (csrc/ablate_decode.cu keeps that body as its `base`, and its
+// b1 family times one change at a time of this kernel's body, as
+// csrc/decode_strips.cu times bulk copies of its code words and image rows).
+// The lookup takes the chain away: what ptxas leaves per symbol is the
+// window extraction, the T1 load and its sign test, the width and the
+// delta, plus the escape path (mask, index, T2 load), which it predicates
+// and so runs for every symbol, escaping or not; and per group of 4 symbols
+// the refill's three word loads. A warp-uniform branch around
 // the escape path (a vote per symbol) cost more than the predicated path.
 // What is left besides is one serial chain per block, whose latency the 64
 // resident warps per SM hide.

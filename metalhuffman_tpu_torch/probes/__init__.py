@@ -1,12 +1,12 @@
 """Probes of the decode kernels on the card: the counterparts of the TPU
-scratch kernels that ranked what bounds the decode. S1 and S2 run the
-interval decode step B1 ran before its lookup-table redesign, so they keep
-measuring the body they measured.
+scratch kernels that ranked what bounds the decode. S1 and the b1 family
+of S2 run B1's lookup-table body as it is now; S2's first five variants
+keep the interval body B1 ran before its redesign.
 
-- ``strips``: B1 with its output staged through shared memory and stored
-  as coalesced image strips (``csrc/decode_strips.cu``; TPU prototype
-  ``scratch/kernel_strips.py``).
-- ``ablate_decode``: B1 in timing variants that each change one thing of its
+- ``strips``: B1 with each CUDA block's code span staged into shared
+  memory and its output stored as pixel-row runs, both by bulk copies
+  (``csrc/decode_strips.cu``; TPU prototype ``scratch/kernel_strips.py``).
+- ``ablate_decode``: B1 in timing variants that each change one thing of a
   body (``csrc/ablate_decode.cu``; TPU ``scratch/ablate_decode.py``).
 - ``int16_rate``: the int16 against int32 integer rate
   (``csrc/int16_rate.cu``; TPU ``scratch/int16_rate.py``).
@@ -19,7 +19,10 @@ raise. Each module's ``main()`` times its kernel on the card:
 
 from __future__ import annotations
 
+import re
 import subprocess
+from collections import Counter
+from pathlib import Path
 
 
 def card(index: int = 0) -> str:
@@ -68,3 +71,31 @@ def measure_interleaved(fns: dict, n_inputs: int, rounds: int = 7,
 
 def median(xs) -> float:
     return sorted(xs)[len(xs) // 2]
+
+
+def sass_opcodes(kernel: str) -> dict[str, Counter]:
+    """Mangled function name -> the count of each SASS opcode in its code,
+    for every function of kernel ``kernel``'s built library, from
+    ``cuobjdump -sass`` (next to nvcc)."""
+    from .. import _build
+
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: cuobjdump lies beside it")
+    dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                           str(_build.build()[kernel])], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, Counter] = {}
+    name = None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = Counter()
+            continue
+        m = re.match(
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
+            line)
+        if name and m:
+            counts[name][m.group(1)] += 1
+    return counts

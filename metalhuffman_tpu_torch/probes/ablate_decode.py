@@ -3,18 +3,27 @@
 Counterpart of the TPU ablation ``scratch/ablate_decode.py``
 (``build_variant``, body ``make_kernel_variant``). :func:`ablate_decode`
 (``csrc/ablate_decode.cu``) decodes a staged shared-table batch of 8x8 blocks
-with the 1-D delta as one of :data:`VARIANTS`, each changing one thing of
-B1's body before its lookup-table redesign, the interval body (the source's
-header comment says which):
+with the 1-D delta as one of :data:`VARIANTS`, each changing one thing of a
+body (the source's header comment says which). Two families:
 
-- ``base``: B1's body before the redesign (15 compares, an adj lookup); TPU
-  ``gatheradj``;
-- ``pruned``: compares only for the table's code lengths, the fused
-  width/adj accumulator; TPU ``base`` and ``maxw``;
-- ``lut``: the two-level 8/8 lookup table of :mod:`..core.tables`;
-- ``ilp2``: two blocks' chains per thread; TPU ``g12``/``g16``;
-- ``xorfold``: base's decode with one u64 store per block, the XOR of its 8
-  row words: the store ablation.
+- B1's body before its lookup-table redesign, the interval body:
+  - ``base``: 15 compares, an adj lookup; TPU ``gatheradj``;
+  - ``pruned``: compares only for the table's code lengths, the fused
+    width/adj accumulator; TPU ``base`` and ``maxw``;
+  - ``lut``: the two-level 8/8 lookup table of :mod:`..core.tables`;
+  - ``ilp2``: two blocks' chains per thread; TPU ``g12``/``g16``;
+  - ``xorfold``: base's decode with one u64 store per block, the XOR of
+    its 8 row words: the store ablation.
+- B1's body as it is now (:data:`B1_FAMILY`), on B1's 11/5 lookup table
+  (``table=``, as :func:`..ops.decode_cuda.decode_images` takes it):
+  - ``b1``: B1's body unchanged, the yardstick;
+  - ``b1_esc32``: u32 entries whose escapes hold the secondary table's
+    index (:func:`esc32_entries`, ``table32=``);
+  - ``b1_refill64``: the refill from two aligned 8-byte loads;
+  - ``b1_row8``: 8 symbols per refill from a 128-bit window;
+  - ``b1_esc32_row8``: the two together;
+  - ``b1_s1smem``: ``b1`` with S1's shared memory beside the table, unused,
+    so at S1's residency: the control of :mod:`.strips`.
 
 All but ``xorfold`` write B1's (T, bh*8, bw*8) uint8 image, so their plain
 version is B1's; ``xorfold`` writes (T*bh*bw,) int64, the plain image's
@@ -27,7 +36,8 @@ Run on the card (from the root of a checkout)::
 
 decodes 30 photo frames of 2048x1536 (and the same frames rolled 16 px to
 the right, a second input), holds each variant equal to ``base`` and to the
-plain version, and times them in interleaved rounds beside B1.
+plain version, and times them in interleaved rounds beside B1, with each
+one's CUDA blocks per SM and registers.
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import re
 import sys
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,10 +57,20 @@ from .. import _build
 from ..core import tables
 from ..ops import decode_cuda
 from . import card, measure_interleaved, median, require_cuda
+from . import sass_opcodes as _sass_opcodes
 
 #: the variants, in the order of the kernel's variant ids
-VARIANTS = ("base", "pruned", "lut", "ilp2", "xorfold")
+VARIANTS = ("base", "pruned", "lut", "ilp2", "xorfold", "b1", "b1_esc32",
+            "b1_refill64", "b1_row8", "b1_esc32_row8", "b1_s1smem")
+#: the variants of B1's lookup-table body; those on :func:`esc32_table`;
+#: those whose refills load 8 bytes at a time
+B1_FAMILY = VARIANTS[5:]
+ESC32_VARIANTS = ("b1_esc32", "b1_esc32_row8")
+WIDE_REFILLS = ("b1_refill64", "b1_row8", "b1_esc32_row8")
 MAX_TERMS = 15
+#: a ``b1_esc32`` T1 entry with this bit escapes; its other bits are the
+#: index of its secondary table in the whole table (``csrc/ablate_decode.cu``)
+ESC32 = 0x80000000
 
 #: kernel launches made by the wrapper in this process
 launches = {"ablate_decode": 0}
@@ -77,6 +99,44 @@ def lut_tables(widths: np.ndarray, device) -> LutTables:
 
     return LutTables(stage(st.t1_symbol, st.t1_width),
                      stage(st.t2_symbol, st.t2_width))
+
+
+def esc32_entries(meta: decode_cuda.CanonicalMeta) -> np.ndarray:
+    """``b1_esc32``'s table of ``meta`` -> (n,) uint32: the entries of
+    :func:`..ops.decode_cuda.lookup_entries` as u32, each T1 escape
+    ``ESCAPE | t`` made ``ESC32 | (2**LUT_K1 + t * 2**(16 - LUT_K1))``, the
+    index of secondary table t's first entry in the whole table. A window
+    that escapes reads entry ``(e & ~ESC32) | (window & (2**(16-LUT_K1) -
+    1))``. T1 takes 8 KB, a complete code's T2 at most 24 KB."""
+    k1, k2 = decode_cuda.LUT_K1, 16 - decode_cuda.LUT_K1
+    ent = decode_cuda.lookup_entries(meta).astype(np.uint32)
+    t1 = ent[: 1 << k1]  # a view: the escapes are rewritten in place
+    esc = (t1 & decode_cuda.ESCAPE) != 0
+    t1[esc] = ESC32 | ((1 << k1) + ((t1[esc] ^ decode_cuda.ESCAPE) << k2))
+    return ent
+
+
+@dataclass(frozen=True)
+class Esc32Table:
+    """``b1_esc32``'s table (:func:`esc32_entries`) staged on a device, the
+    u32 entries as int32 bits."""
+
+    entries: torch.Tensor  # (2**LUT_K1 + num_t2 * 2**(16-LUT_K1),) int32
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.entries.numel()
+
+    @property
+    def t2_in_smem(self) -> bool:
+        """True when the kernel stages the whole table in shared memory."""
+        return self.nbytes <= decode_cuda.T2_SMEM_MAX_BYTES
+
+
+def esc32_table(meta: decode_cuda.CanonicalMeta, device) -> Esc32Table:
+    """Build ``meta``'s ``b1_esc32`` table and stage it on ``device``."""
+    ent = esc32_entries(meta).view(np.int32)
+    return Esc32Table(torch.from_numpy(ent).to(device))
 
 
 def pruned_terms(bounds, adj) -> tuple[tuple, tuple, int]:
@@ -142,16 +202,71 @@ def ablate_decode_plain(words: torch.Tensor, offsets: torch.Tensor,
     return img
 
 
+def _check_table32(table32: Esc32Table | None, words: torch.Tensor) -> None:
+    """Validate the :func:`esc32_table` a CUDA launch takes."""
+    if table32 is None:
+        raise ValueError("the b1_esc32 variants need esc32_table(meta, "
+                         "device)")
+    x = table32.entries
+    if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("table32.entries must be a contiguous 1-D int32 "
+                         "tensor")
+    if x.device != words.device:
+        raise ValueError(f"table32 is on {x.device}, words on {words.device}")
+    t1, per_t2 = 1 << decode_cuda.LUT_K1, 1 << (16 - decode_cuda.LUT_K1)
+    if (x.numel() < t1 or (x.numel() - t1) % per_t2
+            or (x.numel() - t1) // per_t2 > t1 or x.data_ptr() % 16):
+        raise ValueError(f"table32.entries ({x.numel()}) is no 16-byte "
+                         "aligned 11/5 table")
+
+
+def _lut_args(variant: str, lut: LutTables | None, words: torch.Tensor):
+    """The ``lut`` variant's (t1, t2, n_t2) kernel arguments."""
+    if variant != "lut":
+        return None, None, 0
+    if lut is None:
+        raise ValueError("the lut variant needs lut_tables(widths, device)")
+    for name, x in (("t1", lut.t1), ("t2", lut.t2)):
+        if (x.device != words.device or x.dtype != torch.int16
+                or x.dim() != 1 or not x.is_contiguous()):
+            raise ValueError(f"lut.{name} must be a contiguous 1-D int16 "
+                             f"tensor on {words.device}")
+    if lut.t1.numel() != 256 or not 1 <= lut.num_t2 <= 256 \
+            or lut.t2.numel() % 256:
+        raise ValueError("lut needs 256 T1 entries and 1..256 T2 tables")
+    return lut.t1.data_ptr(), lut.t2.data_ptr(), lut.num_t2
+
+
+def _b1_args(variant: str, table, table32, words: torch.Tensor):
+    """The b1 family's (table, table_entries, t2_smem) kernel arguments."""
+    if variant not in B1_FAMILY:
+        return None, 0, 0
+    if variant in ESC32_VARIANTS:
+        _check_table32(table32, words)
+        table = table32
+    else:
+        decode_cuda._check_table(table, words)
+    if variant in WIDE_REFILLS and words.data_ptr() % 8:
+        raise ValueError(f"{variant} reads the words 8 bytes at a time: they "
+                         "must be 8-byte aligned")
+    return (table.entries.data_ptr(), table.entries.numel(),
+            int(table.t2_in_smem))
+
+
 def ablate_decode(words: torch.Tensor, offsets: torch.Tensor,
                   symbols: torch.Tensor, bounds, adj, *, num_frames: int,
                   bh: int, bw: int, variant: str,
-                  lut: LutTables | None = None):
+                  lut: LutTables | None = None,
+                  table: decode_cuda.LookupTable | None = None,
+                  table32: Esc32Table | None = None):
     """Decode a staged shared-table batch of 8x8 blocks with the 1-D delta
     as ``variant``: the inputs of :func:`..ops.decode_cuda.decode_images`,
-    and for ``lut`` the table's :func:`lut_tables` on the same device.
-    Returns (T, bh*8, bw*8) uint8, or for ``xorfold`` (T*bh*bw,) int64.
-    CPU tensors run :func:`ablate_decode_plain`; CUDA tensors launch the
-    kernel."""
+    and on the same device, for ``lut`` the table's :func:`lut_tables`,
+    for ``b1``, ``b1_refill64``, ``b1_row8`` and ``b1_s1smem`` B1's lookup
+    table (``table``, as ``prepare_shared`` stages it), for ``b1_esc32``
+    and ``b1_esc32_row8`` :func:`esc32_table` (``table32``). Returns (T,
+    bh*8, bw*8) uint8, or for ``xorfold`` (T*bh*bw,) int64. CPU tensors
+    run :func:`ablate_decode_plain`; CUDA tensors launch the kernel."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
     nb = num_frames * bh * bw
@@ -160,20 +275,8 @@ def ablate_decode(words: torch.Tensor, offsets: torch.Tensor,
         return ablate_decode_plain(words, offsets, symbols, bounds, adj,
                                    num_frames=num_frames, bh=bh, bw=bw,
                                    variant=variant)
-    t1 = t2 = None
-    n_t2 = 0
-    if variant == "lut":
-        if lut is None:
-            raise ValueError("the lut variant needs lut_tables(widths, device)")
-        for name, x in (("t1", lut.t1), ("t2", lut.t2)):
-            if (x.device != words.device or x.dtype != torch.int16
-                    or x.dim() != 1 or not x.is_contiguous()):
-                raise ValueError(f"lut.{name} must be a contiguous 1-D int16 "
-                                 f"tensor on {words.device}")
-        if lut.t1.numel() != 256 or not 1 <= lut.num_t2 <= 256 \
-                or lut.t2.numel() % 256:
-            raise ValueError("lut needs 256 T1 entries and 1..256 T2 tables")
-        t1, t2, n_t2 = lut.t1.data_ptr(), lut.t2.data_ptr(), lut.num_t2
+    lut_args = _lut_args(variant, lut, words)
+    b1_args = _b1_args(variant, table, table32, words)
     shape = (nb,) if variant == "xorfold" else (num_frames, bh * 8, bw * 8)
     out = torch.empty(shape, dtype=torch.int64 if variant == "xorfold"
                       else torch.uint8, device=words.device)
@@ -184,9 +287,49 @@ def ablate_decode(words: torch.Tensor, offsets: torch.Tensor,
             "ablate_decode", words.device, words.data_ptr(), words.numel(),
             offsets.data_ptr(), nb, bh, bw,
             *decode_cuda._table_args(bounds, adj), symbols.data_ptr(),
-            VARIANTS.index(variant), *terms, t1, t2, n_t2, out.data_ptr())
+            VARIANTS.index(variant), *terms, *lut_args, *b1_args,
+            out.data_ptr())
         launches["ablate_decode"] += 1
     return out
+
+
+def launch_shape(variant: str, n_blocks: int, bounds, adj, *,
+                 lut: LutTables | None = None,
+                 table: decode_cuda.LookupTable | None = None,
+                 table32: Esc32Table | None = None) -> dict:
+    """The launch :func:`ablate_decode` makes for ``variant`` over
+    ``n_blocks`` blocks with these tables (on a CUDA device), as
+    :func:`..ops.decode_cuda.launch_shape` gives B1's: resident CUDA blocks
+    per SM, grid, dynamic and static shared memory per CUDA block,
+    registers and local (spill) bytes per thread."""
+    n_terms = (_pruned_args(tuple(bounds), tuple(adj))[0]
+               if variant == "pruned" else 0)
+    n_t2 = lut.num_t2 if variant == "lut" else 0
+    tab = table32 if variant in ESC32_VARIANTS else table
+    entries, t2_smem = ((tab.entries.numel(), int(tab.t2_in_smem))
+                        if variant in B1_FAMILY else (0, 0))
+    shape = (ctypes.c_int * 6)()
+    fn = _build.lib("ablate_decode").mht_ablate_decode_shape
+    device = (tab.entries.device if variant in B1_FAMILY
+              else lut.t1.device if variant == "lut" else None)
+    with torch.cuda.device(device):
+        err = fn(n_blocks, VARIANTS.index(variant), n_terms, n_t2, entries,
+                 t2_smem, shape)
+    if err:
+        raise RuntimeError(f"mht_ablate_decode_shape failed: CUDA error {err}")
+    return dict(zip(("ctas_per_sm", "grid", "dyn_smem", "static_smem",
+                     "registers", "local_bytes"), shape))
+
+
+def sass_opcodes() -> dict[str, Counter]:
+    """Variant of the b1 family -> the count of each SASS opcode in its
+    kernel's instance with T2 in shared memory, from ``cuobjdump -sass``."""
+    counts = {}
+    for function, ops in _sass_opcodes("ablate_decode").items():
+        m = re.search(r"b1_kernelILi(\d+)ELb1E", function)
+        if m:
+            counts[VARIANTS[int(m.group(1))]] = ops
+    return counts
 
 
 def main(argv=None) -> int:
@@ -212,14 +355,17 @@ def main(argv=None) -> int:
     staged = []
     for frames in frame_sets:
         stream = fs.encode_frames_shared(frames)
-        staged.append((fs.prepare_shared(stream, t, h, w, device=device),
-                       lut_tables(stream.widths, device)))
+        p = fs.prepare_shared(stream, t, h, w, device=device)
+        staged.append((p, dict(
+            lut=lut_tables(stream.widths, device), table=p.table,
+            table32=esc32_table(decode_cuda.canonical_meta(stream.widths),
+                                device))))
 
     def call(variant, i):
-        p, lut = staged[i]
+        p, tabs = staged[i]
         return ablate_decode(p.words, p.offsets, p.symbols, p.bounds, p.adj,
                              num_frames=t, bh=p.bh, bw=p.bw, variant=variant,
-                             lut=lut)
+                             **tabs)
 
     for i, (p, _) in enumerate(staged):
         plain = decode_cuda.decode_images_plain(
@@ -234,21 +380,29 @@ def main(argv=None) -> int:
             if not (torch.equal(got, want) and torch.equal(got, plain_v)):
                 print(f"  !! {v} output mismatch vs base or plain (input {i})")
                 return 1
+    p0, tabs0 = staged[0]
     print(f"every variant == base == plain on {len(staged)} inputs; "
-          f"T2 tables: {staged[0][1].num_t2}, compare terms: "
-          f"{len(pruned_terms(staged[0][0].bounds, staged[0][0].adj)[0])}")
+          f"T2 tables: {tabs0['lut'].num_t2} (8/8), {p0.table.num_t2} "
+          f"(11/5), compare terms: "
+          f"{len(pruned_terms(p0.bounds, p0.adj)[0])}")
     fns = {"B1 decode_images": lambda i: decode_cuda.decode_images(
         staged[i][0].words, staged[i][0].offsets, staged[i][0].symbols,
         staged[i][0].bounds, staged[i][0].adj, num_frames=t,
         bh=staged[i][0].bh, bw=staged[i][0].bw, delta=True,
         table=staged[i][0].table)}
     fns.update({v: (lambda i, v=v: call(v, i)) for v in variants})
+    shapes = {"B1 decode_images": decode_cuda.launch_shape(
+        "decode_images", p0.words.numel(), p0.offsets.numel(), p0.table)}
+    shapes.update({v: launch_shape(v, p0.offsets.numel(), p0.bounds, p0.adj,
+                                   **tabs0) for v in variants})
     name = card()
     for label, ms in measure_interleaved(fns, len(staged)).items():
         med = median(ms)
+        sh = shapes[label]
         print(f"{label:22s} {med:8.4f} ms (min {ms[0]:.4f}, max {ms[-1]:.4f})"
-              f"  {base.size / med / 1e6:7.2f} GB/s decoded, {args.content} "
-              f"{t}x{w}x{h}, on {name}")
+              f"  {base.size / med / 1e6:7.2f} GB/s decoded, "
+              f"{sh['ctas_per_sm']} CTAs/SM, {sh['registers']} registers, "
+              f"{args.content} {t}x{w}x{h}, on {name}")
     return 0
 
 

@@ -21,16 +21,15 @@ each kernel's loop (the SASS opcodes, from ``cuobjdump -sass``).
 from __future__ import annotations
 
 import re
-import subprocess
 import sys
 from collections import Counter
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import _build
 from . import card, measure_interleaved, median, require_cuda
+from . import sass_opcodes as probe_sass
 
 CHAIN = 512  # dependent op pairs per element
 STEP, THRESH = 1, 7
@@ -102,26 +101,11 @@ def ops(n: int, variant: str) -> int:
 def sass_opcodes() -> dict[str, Counter]:
     """Kernel name -> the count of each SASS opcode in its code, from
     ``cuobjdump -sass`` of the built library (next to nvcc)."""
-    nvcc = _build.find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: cuobjdump lies beside it")
-    lib = _build.build()["int16_rate"]
-    dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
-                           str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    counts: dict[str, Counter] = {}
-    name = None
-    for line in dump.splitlines():
-        m = re.search(r"Function : \S*?(rate_i(?:32|16x2|16))", line)
+    counts = {}
+    for function, ops in probe_sass("int16_rate").items():
+        m = re.search(r"(rate_i(?:32|16x2|16))", function)
         if m:
-            name = m.group(1)
-            counts[name] = Counter()
-            continue
-        m = re.match(
-            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
-            line)
-        if name and m:
-            counts[name][m.group(1)] += 1
+            counts[m.group(1)] = ops
     return counts
 
 

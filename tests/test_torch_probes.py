@@ -132,9 +132,13 @@ def test_strips_plain_matches_pallas(batch, jax_s1):
 
 # the port's variant -> the TPU variant that computes its bytes the same way
 # (lut, ilp2 and xorfold change what every TPU variant shares: the table
-# form, the chains per thread, the stores)
+# form, the chains per thread, the stores; the b1 family is B1's lookup
+# body, whose bytes are the interval body's)
 S2_COUNTERPART = {"base": "gatheradj", "pruned": "maxw", "lut": "gatheradj",
-                  "ilp2": "gatheradj", "xorfold": "gatheradj"}
+                  "ilp2": "gatheradj", "xorfold": "gatheradj",
+                  "b1": "gatheradj", "b1_esc32": "gatheradj",
+                  "b1_refill64": "gatheradj", "b1_row8": "gatheradj",
+                  "b1_esc32_row8": "gatheradj", "b1_s1smem": "gatheradj"}
 
 
 @pytest.mark.parametrize("variant", ablate_decode.VARIANTS)
@@ -295,6 +299,229 @@ def test_pruned_terms_give_the_interval_width_and_adj(name):
     assert (acc > 0).all() and (acc < 2**31).all()  # the kernel's int32
 
 
+# -- the b1 family's table and windows, S1's spans and stores --------------
+
+K1, K2 = decode_cuda.LUT_K1, 16 - decode_cuda.LUT_K1
+M64 = (1 << 64) - 1
+
+
+def _lop3(a, b, c, lut):
+    """PTX lop3.b32: bit i of the result is bit (a_i*4 + b_i*2 + c_i) of
+    ``lut``, on uint32 arrays."""
+    out = np.zeros_like(a)
+    for combo in range(8):
+        if lut >> combo & 1:
+            out |= ((a if combo & 4 else ~a) & (b if combo & 2 else ~b)
+                    & (c if combo & 1 else ~c))
+    return out
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_esc32_table_decodes_every_window_as_the_lookup_table(name):
+    # b1_esc32's step (csrc/ablate_decode.cu::window_esc32) in numpy over all
+    # 65,536 windows, against lookup_entries' two-level step and the
+    # interval decode
+    widths = TABLES[name]
+    meta = decode_cuda.canonical_meta(widths)
+    ent = ablate_decode.esc32_entries(meta)
+    e16 = decode_cuda.lookup_entries(meta).astype(np.uint32)
+    assert ent.dtype == np.uint32 and ent.size == e16.size
+    win = np.arange(1 << 16, dtype=np.uint32)
+    e = ent[win >> K2]
+    esc = (e & np.uint32(ablate_decode.ESC32)) != 0
+    mask = np.full_like(win, ablate_decode.ESC32 | ((1 << K2) - 1))
+    idx = _lop3(e, win, mask, 0x58)  # the kernel's esc32_index
+    np.testing.assert_array_equal(
+        idx[esc], (e[esc] & np.uint32(0x7FFFFFFF)) | (win[esc] & 31))
+    e[esc] = ent[idx[esc]]
+    assert not ((e & np.uint32(ablate_decode.ESC32)) != 0).any()
+    # the u16 table's step, as decode_common.cuh::decode_window_lut
+    f = e16[win >> K2]
+    esc16 = (f & decode_cuda.ESCAPE) != 0
+    f[esc16] = e16[(1 << K1) + (((f[esc16] ^ decode_cuda.ESCAPE) << K2)
+                                | (win[esc16] & ((1 << K2) - 1)))]
+    np.testing.assert_array_equal(esc, esc16)
+    np.testing.assert_array_equal(e, f)
+    w, sym = _interval_decode(widths)
+    np.testing.assert_array_equal(e >> 8, w)
+    np.testing.assert_array_equal(e & 0xFF, sym)
+    if name != "constant":  # complete codes: T1 8 KB, T2 at most 24 KB
+        assert 4 * (ent.size - (1 << K1)) <= 24 * 1024
+        assert ablate_decode.esc32_table(meta, "cpu").t2_in_smem
+
+
+def _refill(w, pos):
+    """decode_common.cuh::refill on python ints: the 64 bits at ``pos``,
+    the word index clamped to ``len(w) - 3``."""
+    wi = min(pos >> 5, len(w) - 3)
+    s = pos & 31
+    return ((((w[wi] << 32) | w[wi + 1]) << s | (w[wi + 2] >> (32 - s)))
+            & M64)
+
+
+def _window_at(w0, w1, w2, s):
+    return ((((w0 << 32) | w1) << s) | (w2 >> (32 - s))) & M64
+
+
+def _loads(w, pos, n):
+    """``n`` aligned 8-byte loads at ``pos & ~63``, as the kernel makes
+    them, each (word 2q, word 2q+1); the model refuses a load past the
+    buffer."""
+    q = pos >> 6
+    assert 2 * q + 2 * n <= len(w), "an aligned load past the buffer"
+    return [(w[2 * (q + i)], w[2 * (q + i) + 1]) for i in range(n)]
+
+
+def _refill64(w, pos):
+    """csrc/ablate_decode.cu::refill64 on python ints."""
+    n = len(w)
+    if (pos >> 5) > n - 3 - (n & 1):
+        return _refill(w, pos)
+    (a0, a1), (b0, b1) = _loads(w, pos, 2)
+    odd = pos & 32
+    return _window_at(a1 if odd else a0, b0 if odd else a1,
+                      b1 if odd else b0, pos & 31)
+
+
+def _row8(w, pos, t):
+    """b1_row8's windows on python ints: the 64 bits at ``pos`` and at
+    ``pos + t`` (t bits taken by the first 4 symbols, 4..64) from one
+    128-bit window, or B1's two refills near the buffer's end."""
+    n = len(w)
+    if (pos >> 5) > n - 5 - (n & 1):
+        return _refill(w, pos), _refill(w, pos + t)
+    (a0, a1), (b0, b1), (c0, c1) = _loads(w, pos, 3)
+    odd, s = pos & 32, pos & 31
+    w2 = b1 if odd else b0
+    top = _window_at(a1 if odd else a0, b0 if odd else a1, w2, s)
+    low = _window_at(w2, c0 if odd else b1, c1 if odd else c0, s)
+    return top, (((top << (t - 1)) << 1) | (low >> (64 - t))) & M64
+
+
+@pytest.mark.parametrize("n_words", [40, 41])
+@pytest.mark.parametrize("variant", ["b1_refill64", "b1_row8"])
+def test_wide_refills_equal_the_refill_everywhere(variant, n_words):
+    # at every bit phase of every word, past last_word too, an even and an
+    # odd buffer: the variant's window(s) are B1's refill's
+    rng = np.random.default_rng(n_words)
+    w = [int(x) for x in rng.integers(0, 1 << 32, n_words, dtype=np.uint64)]
+    for pos in range(32 * n_words + 96):
+        if variant == "b1_refill64":
+            assert _refill64(w, pos) == _refill(w, pos), pos
+            continue
+        for t in (4, 17, 33, 48, 63, 64):
+            # a fast row's second window never needs B1's clamp
+            assert _row8(w, pos, t) == (_refill(w, pos),
+                                        _refill(w, pos + t)), (pos, t)
+
+
+def _offsets(rng, n_blocks, base=0):
+    """Ascending u32 bit offsets of ``n_blocks`` blocks of 64..1024 bits
+    (64 codes of 1..16 bits) from ``base`` -> (int32 tensor, total bits)."""
+    ends = base + np.cumsum(rng.integers(64, 1025, n_blocks))
+    offs = np.concatenate([[base], ends[:-1]]).astype(np.int64)
+    return (torch.from_numpy(offs.astype(np.uint32).view(np.int32)),
+            int(ends[-1]))
+
+
+@pytest.mark.parametrize("cap", [strips.SPAN_WORDS,
+                                 strips.PREFETCH_SPAN_WORDS])
+@pytest.mark.parametrize("case", ["random", "past 2^31", "short last CTA",
+                                  "one CTA", "photo"])
+def test_cta_spans_hold_every_word_a_refill_reads(case, cap, batch):
+    rng = np.random.default_rng(len(case))
+    if case == "photo":
+        _frames, stream, args, _geo = batch
+        offsets, total = args[1], 8 * stream.code_bytes.size
+        n_words = args[0].numel()
+    else:
+        n_blocks = {"random": 1024, "past 2^31": 2 * 256 + 5,
+                    "short last CTA": 3 * 256 + 37, "one CTA": 100}[case]
+        offsets, total = _offsets(rng, n_blocks,
+                                  2**31 + 12345 if case == "past 2^31" else 0)
+        n_words = (total + 31) // 32 + decode_cuda.PAD_WORDS
+    spans = strips.cta_spans(offsets, n_words, cap).numpy()
+    off = offsets.numpy().view(np.uint32).astype(np.int64)
+    if case == "past 2^31":
+        assert off[-1] > 2**31 and (offsets < 0).all()
+    ends = np.append(off[1:], total)
+    assert spans.shape == (-(-off.size // 256), 2)
+    for c, (lo, hi) in enumerate(spans):
+        # the bulk copy: 16-byte aligned, a multiple of 16 bytes but at the
+        # buffer's end, inside the buffer and the kernel's span buffer
+        assert lo % 4 == 0 and (hi % 4 == 0 or hi == n_words)
+        assert lo <= hi <= n_words and hi - lo <= cap
+        blk = slice(256 * c, 256 * (c + 1))
+        # a block's groups start from its offset to 4 bits before its end
+        # and read 3 words from there; only a span longer than the buffer
+        # (a prefetch buffer's, past 16 KB) leaves its excess to global
+        # memory
+        assert (off[blk] >> 5 >= lo).all()
+        held = ((ends[blk] - 4) >> 5) + 2 < hi
+        assert held.all() or (cap < strips.SPAN_WORDS and hi - lo == cap)
+
+
+@pytest.mark.parametrize("geo", [(2, 3, 256), (1, 20, 240), (1, 1, 1001),
+                                 (2, 4, 97), (1, 40, 37), (1, 9, 5),
+                                 (3, 2, 6)])
+def test_strip_stores_write_every_row_once_aligned(geo):
+    # S1's strip and its stores, CUDA block by CUDA block: every block row
+    # of the image written once with its own row, every bulk copy 16-byte
+    # aligned at both ends and a multiple of 16 bytes
+    t, bh, bw = geo
+    nb = t * bh * bw
+    cells = np.zeros(t * bh * 8 * bw, np.int64)  # 8-byte cells of the image
+    runs = 0
+    for b0 in range(0, nb, strips.CTA_BLOCKS):
+        n = min(strips.CTA_BLOCKS, nb - b0)
+        slots, stores = strips.strip_stores(b0, n, bw)
+        strip = np.zeros((8, strips.SLOTS), np.int64)
+        for dy in range(8):
+            for k in range(n):
+                assert 0 <= slots[dy][k] < strips.SLOTS
+                assert strip[dy, slots[dy][k]] == 0
+                strip[dy, slots[dy][k]] = 1 + 8 * (b0 + k) + dy
+        for bulk, dy, slot, dst, nbytes in stores:
+            assert dst % 8 == 0 and nbytes % 8 == 0
+            if bulk:
+                assert slot % 2 == 0 and dst % 16 == 0 and nbytes % 16 == 0
+                runs += 1
+            else:
+                assert nbytes == 8
+            k = nbytes // 8
+            assert slot + k <= strips.SLOTS
+            assert (cells[dst // 8: dst // 8 + k] == 0).all()
+            cells[dst // 8: dst // 8 + k] = strip[dy, slot: slot + k]
+    want = (1 + 8 * np.arange(nb).reshape(t, bh, 1, bw)
+            + np.arange(8).reshape(1, 1, 8, 1)).reshape(-1)
+    np.testing.assert_array_equal(cells, want)
+    if bw % 2 == 0 or bw > 40:
+        assert runs  # the geometry has bulk stores
+
+
+def test_probe_kernel_constants_match_the_wrappers():
+    csrc = ROOT / "metalhuffman_tpu_torch" / "csrc"
+    ablate = (csrc / "ablate_decode.cu").read_text()
+    assert ("kB1 = 5, kEsc32 = 6, kRefill64 = 7, kRow8 = 8, kEsc32Row8 = 9,\n"
+            "              kB1S1Smem = 10;" in ablate)
+    # b1_s1smem pads by S1's span buffer and strip
+    assert ("kS1ExtraBytes = 4 * 8200 + 8 * (256 + 8) * 8;" in ablate
+            and strips.SPAN_WORDS == 8200 and strips.SLOTS == 256 + 8)
+    assert ablate_decode.VARIANTS[5:] == ablate_decode.B1_FAMILY == (
+        "b1", "b1_esc32", "b1_refill64", "b1_row8", "b1_esc32_row8",
+        "b1_s1smem")
+    assert "lop3.b32 %0, %1, %2, %3, 0x58;" in ablate
+    assert "0x80000000u | ((1u << mht::kK2) - 1)" in ablate
+    assert ablate_decode.ESC32 == 0x80000000
+    strip_src = (csrc / "decode_strips.cu").read_text()
+    for const in (f"kSpanWords = {strips.SPAN_WORDS};",
+                  f"kPrefetchSpanWords = {strips.PREFETCH_SPAN_WORDS};",
+                  "kSlots = kThreads + 8;",
+                  f"kMaxRuns = {strips.MAX_RUNS};"):
+        assert const in strip_src
+    assert strips.SLOTS == strips.CTA_BLOCKS + 8
+
+
 # -- routing ----------------------------------------------------------------
 
 def _meta_args():
@@ -355,3 +582,46 @@ def test_probes_check_their_inputs(batch):
         int16_rate.int16_rate(torch.zeros(3, dtype=torch.int16), "i16x2")
     with pytest.raises(ValueError, match="variant"):
         int16_rate.make_input(4, "i8", "cpu")
+
+
+def test_b1_family_and_strips_launch_with_their_tables(monkeypatch, batch):
+    # CPU tensors routed as CUDA ones and the launch recorded instead of
+    # made: each wrapper's CUDA path up to the C call
+    calls = []
+    real = decode_cuda._check_inputs
+    monkeypatch.setattr(decode_cuda, "_check_inputs",
+                        lambda *a: "cuda" if real(*a) == "cpu" else "?")
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, device, *args: calls.append((name, args)))
+    _frames, stream, args, geo = batch
+    meta = decode_cuda.canonical_meta(stream.widths)
+    table = decode_cuda.lookup_table(meta, "cpu")
+    table32 = ablate_decode.esc32_table(meta, "cpu")
+    before = _counts()
+    for v in ablate_decode.B1_FAMILY:
+        with pytest.raises(ValueError, match="lookup table|esc32_table"):
+            ablate_decode.ablate_decode(*args, **geo, variant=v)
+    with pytest.raises(ValueError, match="lookup table"):
+        strips.decode_strips(*args, **geo)
+    assert calls == [] and _counts() == before
+    for v in ablate_decode.B1_FAMILY:
+        ablate_decode.ablate_decode(*args, **geo, variant=v, table=table,
+                                    table32=table32)
+    for prefetch in strips.FORMS.values():
+        strips.decode_strips(*args, **geo, table=table, prefetch=prefetch)
+    assert [name for name, _ in calls] == \
+        (["ablate_decode"] * len(ablate_decode.B1_FAMILY)
+         + ["decode_strips"] * len(strips.FORMS))
+    for name, a in calls:  # every argument but the stream
+        assert len(a) + 1 == len(_build._ARGTYPES[name])
+    for v, (_, a) in zip(ablate_decode.B1_FAMILY, calls):
+        assert a[9] == ablate_decode.VARIANTS.index(v)
+        tab = table32 if v in ablate_decode.ESC32_VARIANTS else table
+        assert a[-4:-1] == (tab.entries.data_ptr(), tab.entries.numel(), 1)
+    for (_, a), prefetch in zip(calls[-2:], (0, 1)):
+        assert a[5:9] == (table.entries.data_ptr(), table.entries.numel(), 1,
+                          prefetch)
+    after = _counts()
+    assert after[0]["decode_strips"] == before[0]["decode_strips"] + 2
+    assert after[1]["ablate_decode"] == \
+        before[1]["ablate_decode"] + len(ablate_decode.B1_FAMILY)
