@@ -180,7 +180,22 @@ Phases (any failure exits nonzero and prints no result):
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
    F, G, H, I, J and K and must match the decodes, encodes and probes each
    made.
-13. Times, with CUDA events over distinct staged inputs: B1 with and without
+13. Phase L, the benchmark's entry: ``bench_torch.py -v --device cuda:0``
+   as a process of its own at its defaults (30x2048x1536, 25 calls a
+   repetition, 4 rotations) in nine runs: ``--mode video`` synthetic,
+   ``--content photo`` and ``--precoder delta2d``; ``--mode single``;
+   ``--mode encode``; ``--mode temporal`` plain, and at 8 frames
+   ``--motion``, ``--inner color`` and ``--inner u16``. Each must exit 0 with exactly one stdout
+   line, a JSON object of ``bench.py``'s six keys naming the mode's metric,
+   a value above 0 and 3 or more repetitions, and its launch line (each
+   process counts from 0) must show the kernels of its path launched and
+   no other: B1 for video, single and temporal, ``encode_rows`` and
+   ``encode_stream`` for encode. Then ``--mode video --frames 8 --trace
+   DIR`` must write ``DIR/trace.json`` with host events; its CUDA kernel events and
+   B1's among them are counted (none when CUPTI cannot trace the card).
+   One ``phase L`` JSON line holds each run's line, seconds and launches;
+   the processes' launches add to the kernels line's.
+14. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -208,7 +223,7 @@ Phases (any failure exits nonzero and prints no result):
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I``,
-``phase J`` and ``phase K`` lines come before them.
+``phase J``, ``phase K`` and ``phase L`` lines come before them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -234,6 +249,7 @@ from pathlib import Path
 import numpy as np
 
 from metalhuffman_tpu_torch import probes
+from metalhuffman_tpu_torch.bench import encode_payload
 from metalhuffman_tpu_torch.utils.fixtures import (  # noqa: F401
     photo, photo_frames, synthetic, synthetic_frame)
 
@@ -333,17 +349,6 @@ def flip_bit(stream, bit: int):
     code = stream.code_bytes.copy()
     code[bit // 8] ^= 128 >> (bit % 8)
     return dataclasses.replace(stream, code_bytes=code)
-
-
-def delta_payload(frames: np.ndarray) -> np.ndarray:
-    """The symbols ``encode_frames_shared`` encodes for (T, H, W) frames:
-    each frame's 8x8 blocks in raster order, 1-D delta per block, frames
-    concatenated."""
-    from metalhuffman_tpu_torch import native
-    from metalhuffman_tpu_torch.core import blocks
-
-    return np.concatenate([native.delta_encode(
-        blocks.image_to_blocks(f).ravel(), 64) for f in frames])
 
 
 def encoder_sets() -> list:
@@ -481,7 +486,7 @@ def phase_a_end_bits(device) -> int:
     t, h, w = 2, FULL[1], FULL[2]
     frames = synthetic(t, h, w)
     stream = fs.encode_frames_shared(frames)
-    payload = delta_payload(frames)
+    payload = encode_payload(frames)
     total_bits = int(stream.widths.astype(np.int64)[payload].sum())
     prep = fs.prepare_shared(stream, t, h, w, device=device)
     args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
@@ -704,8 +709,8 @@ def phase_a_encode(device) -> tuple[int, int]:
     each (must be 0)."""
     from metalhuffman_tpu_torch.ops import encode_cuda
 
-    cases = [("delta 2048x1536", delta_payload(synthetic(1, *FULL[1:]))),
-             ("delta 1920x1080", delta_payload(synthetic(1, *HD[1:]))),
+    cases = [("delta 2048x1536", encode_payload(synthetic(1, *FULL[1:]))),
+             ("delta 1920x1080", encode_payload(synthetic(1, *HD[1:]))),
              *encoder_sets()]
     stream_worst = phase_a_stream(device, cases)
     worst = 0
@@ -913,7 +918,7 @@ def phase_d(device) -> dict:
     cases = []
     for name, frames in (("synthetic", synthetic(t, h, w)),
                          ("photo", photo_frames(h, w, t))):
-        payload = delta_payload(frames)
+        payload = encode_payload(frames)
         tailed = np.concatenate([payload, payload[:17]])
         cases.append((name, frames, payload, native.encode_symbols(payload),
                       tailed, native.encode_symbols(tailed)))
@@ -1857,7 +1862,7 @@ def h_seams(device, frames3, streams3) -> tuple[dict, set]:
                           0)
     phases = set()
     payloads = [("photo delta + 37-symbol tail", np.concatenate(
-        [delta_payload(frames), delta_payload(frames[:1])[:37]]))] + [
+        [encode_payload(frames), encode_payload(frames[:1])[:37]]))] + [
         (f"skewed set, seed {seed}", skewed(H_SKEWED, seed))
         for seed in H_SEEDS]
     for world in H_WORLDS:
@@ -1969,7 +1974,7 @@ def phase_h(device, card: str, frames3, streams3) -> tuple[dict, dict, dict]:
         cfg16 = CodecConfig(block_dim=16)
         stream8 = fs.encode_frames_shared(synth, CodecConfig())
         stream16 = fs.encode_frames_shared(synth, cfg16)
-        payload = delta_payload(synth)
+        payload = encode_payload(synth)
         tailed = np.concatenate([payload, payload[:17]])
         hosts = {n: native.encode_symbols(p)
                  for n, p in (("payload", payload), ("tailed", tailed))}
@@ -2896,6 +2901,125 @@ def phase_k(device) -> tuple[dict, dict, dict]:
     return counts, worst, times
 
 
+_B1 = ("decode_images",)
+L_SHORT = ["--frames", "8"]  # the fold chains' and the trace's depth
+#: phase L: ``bench_torch.py``'s runs, by label -> (its arguments besides
+#: ``-v --device``, the metric its line must name, the kernels its path
+#: must launch; every other kernel must launch no time). The fold chains
+#: of ``run_temporal_ext`` run at 8 frames, as phase J's perf matrix does,
+#: to hold the phase near 150 s.
+L_RUNS = {
+    "video": (["--mode", "video"], "decode_throughput", _B1),
+    "video photo": (["--mode", "video", "--content", "photo"],
+                    "decode_throughput", _B1),
+    "video delta2d": (["--mode", "video", "--precoder", "delta2d"],
+                      "decode_throughput", _B1),
+    "single": (["--mode", "single"], "decode_throughput", _B1),
+    "encode": (["--mode", "encode"], "encode_throughput",
+               ("encode_rows", "encode_stream")),
+    "temporal": (["--mode", "temporal"], "temporal_decode_throughput", _B1),
+    "temporal motion": (["--mode", "temporal", "--motion", *L_SHORT],
+                        "temporal_mc_decode_throughput", _B1),
+    "temporal color": (["--mode", "temporal", "--inner", "color", *L_SHORT],
+                       "temporal_color_decode_throughput", _B1),
+    "temporal u16": (["--mode", "temporal", "--inner", "u16", *L_SHORT],
+                     "temporal_u16_decode_throughput", _B1),
+}
+L_TRACED = "video"  # the run made once more with --trace, at 8 frames
+L_TIMEOUT = 300  # seconds for one bench_torch.py process
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "reps", "spread_pct")
+
+
+def run_bench(label: str, device, card: str,
+              extra=()) -> tuple[dict, dict, float]:
+    """Phase L: ``bench_torch.py -v --device device`` with run ``label``'s
+    arguments as a process of its own (its session killed after
+    ``L_TIMEOUT``) -> (its JSON line, its launch counts, its host-clock
+    seconds), after checking the line, the metric and the launches."""
+    import os
+    import signal
+    import subprocess
+
+    args, metric, path = L_RUNS[label]
+    argv = [sys.executable, str(ROOT / "bench_torch.py"), "-v", "--device",
+            str(device), *args, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=L_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # the supervisor and its child
+        proc.communicate()
+        raise PhaseError(f"phase L {label}: past {L_TIMEOUT} s") from None
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase L {label}: exit {proc.returncode}:"
+          f"\n{out[-4000:]}\n{err[-4000:]}")
+    lines = out.strip().splitlines()
+    check(len(lines) == 1, f"phase L {label}: {len(lines)} stdout lines")
+    line = json.loads(lines[0])
+    check(tuple(line) == BENCH_KEYS and line["metric"] == metric
+          and line["unit"] == "GB/s" and line["value"] > 0
+          and line["reps"] >= 3, f"phase L {label}: line {line}")
+    found = [ln for ln in err.splitlines() if ln.startswith("launches ")]
+    check(len(found) == 1, f"phase L {label}: no launch line:\n{err[-4000:]}")
+    counts = json.loads(found[0][len("launches "):])
+    check(all((counts[k] > 0) == (k in path) for k in counts),
+          f"phase L {label}: launches {counts}, the path's {path}")
+    print(f"phase L {label}: {wall:.3f} s; {lines[0]}; launches {counts}; "
+          f"on {card}")
+    print("\n".join(f"  {ln}" for ln in err.strip().splitlines()
+                    if not ln.startswith("launches ")))
+    return line, counts, wall
+
+
+def trace_events(path: Path) -> dict:
+    """A Chrome trace's host events, CUDA kernel events and B1's kernel
+    events, counted."""
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"host": sum(e.get("cat") in ("cpu_op", "cuda_runtime",
+                                         "python_function",
+                                         "user_annotation")
+                        for e in events),
+            "kernels": len(kernels),
+            "b1": sum("decode_images_kernel" in e.get("name", "")
+                      for e in kernels)}
+
+
+def phase_l(device, card: str) -> tuple[dict, dict]:
+    """``bench_torch.py``, the benchmark's entry, in every mode on
+    ``device`` (see the module docstring) -> (the launches its processes
+    reported, summed; each run's line, seconds and launches, and the traced
+    run's event counts)."""
+    import tempfile
+
+    total = dict.fromkeys(KERNELS, 0)
+    runs = {}
+    for label in L_RUNS:
+        line, counts, wall = run_bench(label, device, card)
+        runs[label] = {"line": line, "s": wall, "launches": counts}
+        for name, n in counts.items():
+            total[name] += n
+    with tempfile.TemporaryDirectory(prefix="mht_bench_trace_") as where:
+        _, counts, wall = run_bench(L_TRACED, device, card,
+                                    [*L_SHORT, "--trace", where])
+        for name, n in counts.items():
+            total[name] += n
+        path = Path(where) / "trace.json"
+        check(path.is_file(), "phase L trace: no trace.json")
+        events = trace_events(path)
+    check(events["host"] > 0, f"phase L trace: no host events: {events}")
+    if not events["kernels"]:
+        print("phase L trace: the profiler recorded no CUDA kernel "
+              "(CUPTI did not trace the card)")
+    print(f"phase L trace: {events['host']} host events, "
+          f"{events['kernels']} CUDA kernel events, {events['b1']} of B1; "
+          f"{wall:.3f} s; on {card}")
+    return total, {"runs": runs, "trace": {**events, "s": wall}}
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
           unit: str = "decoded") -> float:
     """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
@@ -3186,7 +3310,7 @@ def encode_timings(device, card: str) -> tuple[dict, dict]:
     from metalhuffman_tpu_torch import native
     from metalhuffman_tpu_torch.ops import encode_cuda
 
-    payload = delta_payload(synthetic(*FULL))
+    payload = encode_payload(synthetic(*FULL))
     n = payload.size
     check(n % 64 == 0, "timed payload: not whole blocks")
     # distinct inputs in distinct buffers: the payload rolled by whole
@@ -3735,6 +3859,9 @@ def main(argv: list[str]) -> int:
     k_counts, k_errs, k_times = phase_k(device)
     for name, count in k_counts.items():
         launches[name] += count
+    l_counts, l_runs = phase_l(device, card)
+    for name, count in l_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -3763,6 +3890,8 @@ def main(argv: list[str]) -> int:
                                    "scaling_report": j_scaling}))
     print("phase K " + json.dumps({"card": card, "launches": k_counts,
                                    "s": k_times}))
+    print("phase L " + json.dumps({"card": card, "launches": l_counts,
+                                   **l_runs}))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

@@ -1,6 +1,8 @@
-"""Decode throughput of the shared-table video batch and of the temporal
-(MHVT) decode with its fold (counterparts of the repository root's
-``bench.py::run_video``, ``run_temporal`` and ``run_temporal_ext``).
+"""Decode throughput of the shared-table video batch, of one image and of
+the temporal (MHVT) decode with its fold, and encode throughput
+(counterparts of the repository root's ``bench.py::run_video``,
+``run_single``, ``run_temporal``, ``run_temporal_ext`` and ``run_encode``;
+the root's ``bench_torch.py`` drives them as ``bench.py`` does).
 
 A batch of ``frames`` frames of ``height`` x ``width`` (synthetic gradients
 or the panned bridge photo) is encoded on the host with one shared table,
@@ -21,6 +23,12 @@ same way: B1 on a staged residual stream, then ``temporal.fold_planes``
 (the plane fold of a color or u16 inner, then the group or the
 motion-compensated fold) on the card; the fold-less rate of the same staged
 inputs goes to stderr.
+
+:func:`run_single` times back-to-back ``ImageCodec.decode_step`` calls of
+one frame on the host clock, each repetition ended by a host fetch of a
+dependent scalar, so the wrappers' host work per call is in the number.
+:func:`run_encode` times the host encoder the port encodes with and, on
+stderr, B3's two forms on the device and the host row merge.
 
     python -m metalhuffman_tpu_torch bench --frames 30 --device cuda
 """
@@ -46,6 +54,12 @@ def _timed_loop(dev, seq, reps: int = REPS) -> list[float]:
             d()
 
     return [elapsed_s(dev, run) for _ in range(reps)]
+
+
+def _device_kind(dev) -> str:
+    import torch
+
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 def _rates(nbytes: int, times: list[float]):
@@ -112,10 +126,9 @@ def run_video(height: int, width: int, frames: int, iters: int,
     dt = sorted(times)[len(times) // 2]
     lat = sorted(elapsed_s(dev, decodes[i % variants]) * 1e3
                  for i in range(3 * variants))
-    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     ratio = streams[0].compressed_size / base.size
     print(
-        f"device={kind} frames={frames} frame={height}x{width} "
+        f"device={_device_kind(dev)} frames={frames} frame={height}x{width} "
         f"iters={iters} content={content} variants={variants} "
         f"precoder={precoder}\n"
         f"encode(host)={t_enc:.2f} s for {variants}x"
@@ -265,3 +278,147 @@ def run_temporal_ext(height: int, width: int, frames: int, iters: int,
     label = inner + ("+mc" if motion else "")
     return _time_mhvt(dev, sets, base.nbytes, iters, label, keyint=keyint,
                       cinfo=cinfo, height=height, width=width)
+
+
+def _barrier(x) -> int:
+    """Completion barrier: a host fetch of a scalar that depends on ``x``."""
+    import torch
+
+    return int(x[..., :1, :1].to(torch.int32).sum())
+
+
+def run_single(height: int, width: int, device="cuda", iters: int = 25,
+               verbose: bool = False):
+    """Decode GB/s of one synthetic frame, one ``decode_step`` a call ->
+    ``(median GB/s, repetitions, spread in percent)``.
+
+    The frame is checked first (ValueError on a mismatch). Each of 3
+    repetitions is ``iters`` back-to-back calls on the host clock, ended by
+    one host fetch of a dependent scalar, so the number holds each call's
+    host work (checks, allocation, the launch) as well as the kernel's.
+    """
+    import torch
+
+    from .models.config import CodecConfig
+    from .models.image_codec import ImageCodec
+    from .utils import fixtures
+
+    dev = torch.device(device)
+    img = fixtures.synthetic_frame(height, width)
+    codec = ImageCodec(CodecConfig())
+    prep = codec.prepare(codec.encode(img), height, width, device=dev)
+    if not np.array_equal(codec.decode_step(prep).cpu().numpy(), img):
+        raise ValueError("decode mismatch")
+    _barrier(codec.decode_step(prep))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            r = codec.decode_step(prep)
+        _barrier(r)
+        times.append(time.perf_counter() - t0)
+    gbps, n, spread, _ = _rates(height * width * iters, times)
+    if verbose:
+        print(f"single-frame [{_device_kind(dev)}]: "
+              f"{height * width / gbps / 1e6:.3f} ms/frame {gbps:.2f} GB/s "
+              f"median of {n} (incl. dispatch overhead)", file=sys.stderr)
+    return gbps, n, spread
+
+
+def encode_payload(frames: np.ndarray) -> np.ndarray:
+    """The symbols the encode benchmark encodes: each frame's 8x8 blocks in
+    raster order, the 1-D delta of each block, frames concatenated (the
+    payload ``frame_stream.encode_frames_shared`` encodes)."""
+    from . import native
+    from .core import blocks
+
+    return np.concatenate([native.delta_encode(
+        blocks.image_to_blocks(f).ravel(), 64) for f in frames])
+
+
+def run_encode(height: int, width: int, frames: int, iters: int,
+               content: str = "synthetic", device="cuda",
+               verbose: bool = False):
+    """Encode GB/s of the host encoder the port encodes with
+    (``native.encode_symbols``, as ``encode_frames_shared`` calls it) ->
+    ``(median GB/s, repetitions, spread in percent)``: a warm call, then 3
+    repetitions of ``max(1, iters // 8)`` calls on the host clock.
+
+    Before any timing, B3's row form (``encode_rows``) plus the host row
+    merge (``native.merge_rows``) and the stream encoder
+    (``encode_stream``) must each give the host encoder's bytes and block
+    offsets on the payload (ValueError if not). Diagnostics on stderr: each
+    device form on two staged rotations of the payload (by one block: one
+    table, other bitstreams) with CUDA events, the row merge on the host
+    clock, and one whole ``encode_symbols_hybrid`` call after a warm one.
+    """
+    import torch
+
+    from . import native
+    from .ops import encode_cuda
+    from .utils.profiling import elapsed_s
+
+    dev = torch.device(device)
+    syms = encode_payload(_frames(content, height, width, frames))
+    payload = syms.size
+    calls = max(1, iters // 8)
+    enc = native.encode_symbols(syms)  # warm
+
+    widths, codes = encode_cuda.canonical_table(syms)
+    table = torch.from_numpy(encode_cuda.code_table(widths, codes)).to(dev)
+    bits = encode_cuda.block_bits(syms.reshape(-1, 64), widths)
+    wmax = int(bits.max()) // 32 + 2
+    staged = [torch.from_numpy(syms).to(dev),
+              torch.from_numpy(np.roll(syms, 64)).to(dev)]
+
+    # the row form as the hybrid ran it before encode_stream: B3's rows
+    # without their count word, fetched, merged on the host
+    rows = encode_cuda.encode_rows(staged[0].view(-1, 64), table, wmax=wmax)
+    rows = rows[:, :wmax].contiguous().cpu().numpy().view(np.uint32)
+    code, offsets, _ = native.merge_rows(rows, bits)
+    if not (np.array_equal(code, enc.code_bytes)
+            and np.array_equal(offsets, enc.block_offsets)):
+        raise ValueError(
+            "encode_rows + merge_rows differs from the host encoder")
+    stream, offs, _ = encode_cuda.encode_stream(staged[0], table)
+    if not (np.array_equal(stream.cpu().numpy(), enc.code_bytes)
+            and np.array_equal(offs.cpu().numpy().view(np.uint32),
+                               enc.block_offsets)):
+        raise ValueError("encode_stream differs from the host encoder")
+
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            native.encode_symbols(syms)
+        host.append(time.perf_counter() - t0)
+    gbps, n, spread, rates = _rates(payload * calls, host)
+
+    def device_gbps(fn):
+        seq = [lambda s=staged[i % 2]: fn(s) for i in range(iters)]
+        return _rates(payload * iters, _timed_loop(dev, seq, reps=3))[0]
+
+    rows_gbps = device_gbps(lambda s: encode_cuda.encode_rows(
+        s.view(-1, 64), table, wmax=wmax))
+    stream_gbps = device_gbps(lambda s: encode_cuda.encode_stream(s, table))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        native.merge_rows(rows, bits)
+    merge_gbps = payload * calls / (time.perf_counter() - t0) / 1e9
+    encode_cuda.encode_symbols_hybrid(syms, device=dev)  # warm
+    t0 = time.perf_counter()
+    encode_cuda.encode_symbols_hybrid(syms, device=dev)
+    e2e_gbps = payload / (time.perf_counter() - t0) / 1e9
+    print(f"per-rep GB/s (n={n}): " + " ".join(f"{r:.2f}" for r in rates)
+          + f"  median={gbps:.2f} spread={spread:.1f}%", file=sys.stderr)
+    if verbose:
+        print(f"device={_device_kind(dev)} payload={payload / 1e6:.0f} MB "
+              f"content={content} wmax={wmax}\n"
+              f"host MT encode: {gbps:.2f} GB/s (production)\n"
+              f"encode_rows kernel (device-resident): {rows_gbps:.2f} GB/s\n"
+              f"encode_stream, both passes (device-resident): "
+              f"{stream_gbps:.2f} GB/s\n"
+              f"row merge (host): {merge_gbps:.2f} GB/s\n"
+              f"encode_symbols_hybrid, one call with its copies: "
+              f"{e2e_gbps:.2f} GB/s", file=sys.stderr)
+    return gbps, n, spread

@@ -30,7 +30,7 @@ TWINS = [ROOT / p for p in (
     "examples/scaling_report_torch.py", "scripts/perf_matrix_torch.py",
     "scripts/streaming_gate_torch.py")]
 PORT_FILES = sorted((ROOT / "metalhuffman_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", *TWINS]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py", *TWINS]
 
 
 def test_port_imports_and_decodes_without_jax():
