@@ -178,8 +178,8 @@ Phases (any failure exits nonzero and prints no result):
    fold apart, with CUDA events), each surgery call; one ``phase K`` JSON
    line holds them with the launches.
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
-   F, G, H, I, J and K and must match the decodes, encodes and probes each
-   made.
+   F, G, H, I, J, K and M and must match the decodes, encodes and probes
+   each made.
 13. Phase L, the benchmark's entry: ``bench_torch.py -v --device cuda:0``
    as a process of its own at its defaults (30x2048x1536, 25 calls a
    repetition, 4 rotations) in nine runs: ``--mode video`` synthetic,
@@ -195,7 +195,23 @@ Phases (any failure exits nonzero and prints no result):
    B1's among them are counted (none when CUPTI cannot trace the card).
    One ``phase L`` JSON line holds each run's line, seconds and launches;
    the processes' launches add to the kernels line's.
-14. Times, with CUDA events over distinct staged inputs: B1 with and without
+14. Phase M, the host C++ decoder (``device="native"``, the JAX package's
+   ``backend="native"``) on the card's machine, after phase L: the
+   30x2048x1536 synthetic and photo MHTV batches of phases A and B, the
+   photo as MHT1 at 8x8 and 16x16, phase F's F1 (150 frames of MHV2)
+   through ``decode_range`` 130-140 and a checked 512x512 region of frames
+   134-138, G1's and G2's MHVT (8 frames, the MC one with motion), and the
+   136 frames of phase F's F2 segment 0, with blocks past 2^31 bits; each
+   decoded on ``native`` and on the card (B1, or B2 at 16x16 and for the
+   region), each equal to its source and the two to each other. A checked
+   decode on ``native`` must be refused by the library and by
+   ``decode-video --check [--streaming] --device native``. Then the native
+   decode of the synthetic batch (``decode_frames_shared``, and
+   ``native.decode_blocks`` alone) on the host's clock, median of 5, beside
+   B1's queued calls with CUDA events, as GB/s and the factor between them,
+   with the CPU model, ``os.cpu_count()``, the decode's thread count and the
+   card. One ``phase M`` JSON line holds them with the launches.
+15. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -223,7 +239,8 @@ Phases (any failure exits nonzero and prints no result):
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I``,
-``phase J``, ``phase K`` and ``phase L`` lines come before them.
+``phase J``, ``phase K``, ``phase L`` and ``phase M`` lines come before
+them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -1329,8 +1346,8 @@ def phase_f(device) -> tuple[dict, dict, dict]:
     print("phase F ok: B2 == plain on F1's region selections (bytes and end "
           f"bits); B1 == plain on each of F3's {F3_FRAMES} tables")
     torch.cuda.synchronize()
-    return counts, worst, {"blob1": blob1, "f2 segment 0": s20, "f3": f3,
-                           "streams3": streams3}
+    return counts, worst, {"blob1": blob1, "f2 segment 0": s20, "f2": f2,
+                           "f3": f3, "streams3": streams3}
 
 
 def stream_timings(device, card: str, ctx: dict) -> None:
@@ -2507,7 +2524,7 @@ def phase_j(device) -> tuple[dict, dict, list, dict]:
               f"their sources ({', '.join(out['decoded'])}); blobs "
               + ", ".join(f"{k} {len(b)} B" for k, b in out["blobs"].items()))
     rows = run_twin("perf_matrix", device, times)
-    check(len(rows) == 10 and all(r[3] > 0 for r in rows),
+    check(len(rows) == 11 and all(r[3] > 0 for r in rows),
           f"phase J perf_matrix: rows {rows}")
     counts = read_launches()
     perf = J_TWINS["perf_matrix"][1]
@@ -3018,6 +3035,201 @@ def phase_l(device, card: str) -> tuple[dict, dict]:
           f"{events['kernels']} CUDA kernel events, {events['b1']} of B1; "
           f"{wall:.3f} s; on {card}")
     return total, {"runs": runs, "trace": {**events, "s": wall}}
+
+
+M_FRAMES = 8  #: phase M: frames of its G1 and G2 MHVT clips
+M_RANGE = (130, 140)  #: phase M: F1's decode_range, across its segments
+M_REGION_FRAMES = (134, 139)  #: phase M: the frames of F1's region decode
+
+
+def cpu_model() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names its first processor: the
+    model name, or where that is missing or "unknown", the vendor, family,
+    model and clock."""
+    import platform
+
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name and name.lower() != "unknown":
+        return name
+    parts = [fields.get("vendor_id", platform.machine())]
+    if "cpu family" in fields:
+        parts.append(f"family {fields['cpu family']} model "
+                     f"{fields.get('model', '?')}")
+    if "cpu MHz" in fields:
+        parts.append(f"{fields['cpu MHz']} MHz")
+    return " ".join(parts)
+
+
+def phase_m(device, card: str, f_ctx: dict) -> tuple[dict, dict]:
+    """The host C++ decoder (``device="native"``) on the card's machine
+    (see the module docstring), on its own inputs and on phase F's (F1's
+    blob, F2's frames and segment 0, from ``f_ctx``) -> (the launches each
+    kernel made, after checking them; the phase's numbers for its ``phase
+    M`` line)."""
+    import os
+    import tempfile
+
+    import metalhuffman_tpu_torch as mt
+    from metalhuffman_tpu_torch import cli, native
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models import temporal
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+
+    t_phase = time.perf_counter()
+    t, h, w = FULL
+    nat = native.NATIVE
+    threads = os.cpu_count()  # n_threads=0: std::thread's hardware count
+    host = {"cpu": cpu_model(), "cpu_count": os.cpu_count(),
+            "usable_cpus": len(os.sched_getaffinity(0)),
+            "decode_threads": threads}
+    print(f"phase M host: {host['cpu']}; os.cpu_count() {host['cpu_count']}"
+          f", {host['usable_cpus']} usable; the native decode runs "
+          f"{threads} threads; card {card}")
+    expected = expect()
+    times = {}
+
+    def both(label, fn, want, kernel, n):
+        """``fn(d)`` on ``native`` and on the card: each must equal
+        ``want``, and the two each other; the card's call launches
+        ``kernel`` ``n`` times."""
+        t0 = time.perf_counter()
+        got = fn(nat)
+        dn = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card_out = fn(device)
+        dc = time.perf_counter() - t0
+        expected[kernel] += n
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and np.array_equal(got, want),
+              f"phase M {label}: the native decode differs from the source")
+        check(np.array_equal(got, card_out),
+              f"phase M {label}: the native decode differs from the card's")
+        times[label] = {"native_s": dn, "card_s": dc}
+        print(f"phase M {label}: native == source == {kernel} on the card "
+              f"({dn:.3f} s native, {dc:.3f} s card, host clock)")
+
+    t0 = time.perf_counter()
+    synth = synthetic(t, h, w)
+    photo30 = photo_frames(h, w, t)
+    blob_s, blob_p = mt.encode_video(synth), mt.encode_video(photo30)
+    img = photo30[0]
+    mht8 = mt.encode_image(img)
+    mht16 = mt.encode_image(img, CodecConfig(block_dim=16))
+    f1 = photo_frames(h, w, F1_FRAMES)
+    blob1 = f_ctx["blob1"]
+    g = photo_frames(h, w, M_FRAMES)
+    mhvt1 = mt.encode_video(g, CodecConfig(temporal=True, keyint=G_KEYINT,
+                                           frame_crcs=True))
+    mhvt2 = mt.encode_video(g, CodecConfig(temporal=True, motion=True,
+                                           keyint=G_KEYINT, frame_crcs=True))
+    check((temporal.unwrap(mhvt2)[3][1:] != 0).any(),
+          "phase M G2: no motion vector found")
+    print(f"phase M inputs encoded in {time.perf_counter() - t0:.2f} s")
+
+    reset_launches()
+    size = f"{t}x{w}x{h}"
+    both(f"A/B synthetic {size} MHTV",
+         lambda d: mt.decode_video(blob_s, d), synth, "decode_images", 1)
+    both(f"A/B photo {size} MHTV",
+         lambda d: mt.decode_video(blob_p, d), photo30, "decode_images", 1)
+    both("MHT1 photo 8x8", lambda d: mt.decode_image(mht8, d), img,
+         "decode_images", 1)
+    both("MHT1 photo 16x16", lambda d: mt.decode_image(mht16, d), img,
+         "decode_blocks", 1)
+    a, b = M_RANGE
+    both(f"F1 MHV2 decode_range {a}-{b}",
+         lambda d: fs.decode_range(blob1, a, b, device=d)[0], f1[a:b],
+         "decode_images", 2)
+    y0, x0, rh, rw = F_REGION
+    a, b = M_REGION_FRAMES
+    both(f"F1 MHV2 {rh}x{rw} region of frames {a}-{b - 1} (checked)",
+         lambda d: fs.decode_video_region(blob1, a, b, y0, x0, rh, rw,
+                                          check=True, device=d),
+         f1[a:b, y0:y0 + rh, x0:x0 + rw], "decode_blocks", 2)
+    del f1
+    both(f"G1 MHVT {M_FRAMES}x{w}x{h}", lambda d: mt.decode_video(mhvt1, d),
+         g, "decode_images", 1)
+    both(f"G2 MC MHVT {M_FRAMES}x{w}x{h}",
+         lambda d: mt.decode_video(mhvt2, d), g, "decode_images", 1)
+    s20 = f_ctx["f2 segment 0"]
+    t20 = s20.block_offsets.size // ((h // 8) * (w // 8))
+    past = int((s20.block_offsets >= np.uint32(1 << 31)).sum())
+    check(past > 0, "phase M F2: no block offset past 2^31")
+    both(f"F2 MHV2 segment 0, {t20} frames, {past} blocks past 2^31 bits",
+         lambda d: fs.decode_frames_shared(
+             s20, t20, h, w, CodecConfig(delta=False), device=d
+         ).cpu().numpy(), f_ctx["f2"][:t20], "decode_images", 1)
+    counts = read_launches()
+    check(counts == expected,
+          f"phase M: kernel launches {counts}, expected {expected}")
+    print(f"phase M launches: {counts}")
+
+    # --check on native is refused, in the library and on the CLI
+    segs, *_ = fs.read_segmented(blob1)
+    try:
+        fs.decode_frames_segmented(segs, h, w, check=True, device=nat)
+    except ValueError as e:
+        print(f"phase M refused: checked decode on native: {e}")
+    else:
+        raise PhaseError("phase M: a checked decode ran on native")
+    with tempfile.TemporaryDirectory(prefix="mht_phase_m_") as where:
+        path = Path(where) / "f1.mhv2"
+        path.write_bytes(blob1)
+        for flags in ([], ["--streaming"]):
+            argv = ["decode-video", str(path), str(Path(where) / "o.npy"),
+                    "--check", *flags, "--device", nat]
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                check(e.code == cli.NATIVE_CHECK_REFUSAL,
+                      f"phase M: decode-video --check {flags} on native "
+                      f"exited with {e.code!r}")
+                print(f"phase M refused: decode-video --check {flags} "
+                      f"--device native: {e.code}")
+            else:
+                raise PhaseError("phase M: decode-video --check ran on "
+                                 "native")
+    del segs
+
+    # the timed batch: the native decode on the host clock beside B1's
+    # queued calls with CUDA events, on the 30x2048x1536 synthetic batch
+    cfg = CodecConfig()
+    stream = fs.read_shared(blob_s)[0]
+    nbytes = synth.size
+    whole = host_timed(f"M native decode_frames_shared {size} synthetic",
+                       lambda s: fs.decode_frames_shared(s, t, h, w, cfg,
+                                                         device=nat),
+                       [stream], card, nbytes)
+    blocks_only = host_timed("M native.decode_blocks alone",
+                             native.decode_blocks, [stream], card, nbytes)
+    _base, preps = staged_batches(device, cfg)
+    b1_ms = back_to_back("M B1 queued", lambda p: fs.decode_shared_step(
+        p, cfg, raw=True), preps, card, nbytes)
+    del preps
+    numbers = {
+        "native_ms": whole, "native_gbps": nbytes / whole / 1e6,
+        "native_blocks_ms": blocks_only,
+        "native_blocks_gbps": nbytes / blocks_only / 1e6,
+        "b1_queued_ms": b1_ms, "b1_gbps": nbytes / b1_ms / 1e6,
+        "factor": whole / b1_ms}
+    print(f"time M: the native decode of {size} synthetic frames "
+          f"{numbers['native_gbps']:.3f} GB/s ({threads} threads on "
+          f"{host['cpu']}; decode_blocks alone "
+          f"{numbers['native_blocks_gbps']:.3f}), B1 queued "
+          f"{numbers['b1_gbps']:.3f} GB/s on {card}: the host decoder takes "
+          f"{numbers['factor']:.1f}x B1's time")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase M: {numbers['phase_s']:.1f} s in all")
+    return counts, {"card": card, **host, **numbers, "s": times}
 
 
 def timed(label: str, fn, inputs, card: str, nbytes: int,
@@ -3862,6 +4074,9 @@ def main(argv: list[str]) -> int:
     l_counts, l_runs = phase_l(device, card)
     for name, count in l_counts.items():
         launches[name] += count
+    m_counts, m_numbers = phase_m(device, card, f_ctx)
+    for name, count in m_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -3892,6 +4107,7 @@ def main(argv: list[str]) -> int:
                                    "s": k_times}))
     print("phase L " + json.dumps({"card": card, "launches": l_counts,
                                    **l_runs}))
+    print("phase M " + json.dumps({"launches": m_counts, **m_numbers}))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

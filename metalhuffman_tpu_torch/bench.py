@@ -29,6 +29,8 @@ one frame on the host clock, each repetition ended by a host fetch of a
 dependent scalar, so the wrappers' host work per call is in the number.
 :func:`run_encode` times the host encoder the port encodes with and, on
 stderr, B3's two forms on the device and the host row merge.
+:func:`run_native` times the host C++ decoder (``device="native"``) on the
+batch, on the host clock.
 
     python -m metalhuffman_tpu_torch bench --frames 30 --device cuda
 """
@@ -79,6 +81,44 @@ def _frames(content: str, height: int, width: int, frames: int) -> np.ndarray:
     if content == "photo":
         return fixtures.photo_frames(height, width, frames)
     return fixtures.synthetic(frames, height, width)
+
+
+def run_native(height: int, width: int, frames: int, iters: int,
+               content: str = "synthetic"):
+    """Decode GB/s of the host C++ decoder (``device="native"``) on the
+    batch (1-D delta) -> ``(median GB/s, repetitions, spread in
+    percent)``: host-clock seconds of ``iters`` ``native.decode_blocks``
+    calls over all its blocks on every core, median of :data:`REPS`
+    repetitions (the C++ host row of the JAX package's
+    ``scripts/perf_matrix.py``). Raises ValueError when the decode differs
+    from the frames' blocks."""
+    from . import native
+    from .core import blocks
+    from .models import frame_stream
+    from .models.config import CodecConfig
+
+    cfg = CodecConfig()
+    base = _frames(content, height, width, frames)
+    stream = frame_stream.encode_frames_shared(base, cfg)
+
+    def decode():
+        return native.decode_blocks(stream)
+
+    want = np.concatenate([blocks.image_to_blocks(f, cfg.block_dim)
+                           for f in base])
+    if not np.array_equal(decode(), want):
+        raise ValueError("host decode mismatch")
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            decode()
+        times.append(time.perf_counter() - t0)
+    gbps, n, spread_pct, rates = _rates(base.size * iters, times)
+    print(f"native per-rep GB/s (n={n}): "
+          + " ".join(f"{r:.2f}" for r in rates)
+          + f"  median={gbps:.2f} spread={spread_pct:.1f}%", file=sys.stderr)
+    return gbps, n, spread_pct
 
 
 def run_video(height: int, width: int, frames: int, iters: int,

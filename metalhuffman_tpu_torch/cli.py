@@ -3,10 +3,13 @@ roundtrip / encode-video / decode-video / extract / concat / resegment /
 info / verify / inspect / bench.
 
 Counterpart of ``metalhuffman_tpu/cli.py``, with ``--device`` (default
-``cuda``; also ``cuda:N`` or ``cpu``) in place of ``--backend`` and
-``--interpret``. Encodes run on the host, as in the JAX package; every
+``cuda``; also ``cuda:N``, ``cpu`` or ``native``) in place of ``--backend``
+and ``--interpret``. Encodes run on the host, as in the JAX package; every
 decode runs on ``--device``: the CUDA kernels on a card, their plain PyTorch
-versions on the CPU, and nothing else. Images are any PIL-supported format,
+versions on the CPU, or the multithreaded host C++ decoder with ``native``
+(the JAX CLI's ``--backend native``), and nothing else. The end-bit check is
+an output of the kernels: ``--check`` refuses ``native`` and ``verify``
+reports it skipped, as the JAX CLI does for its native backend. Images are any PIL-supported format,
 raw ``.gray`` or ``.tga``; containers are MHT1, MHTV, MHV2, MHTS, MHTC and
 MHVT.
 
@@ -38,8 +41,9 @@ from pathlib import Path
 
 import numpy as np
 
-def _device(text: str) -> str:
-    """argparse type of ``--device``: any string ``torch.device`` takes."""
+def _torch_device(text: str) -> str:
+    """argparse type of ``bench --device``: any string ``torch.device``
+    takes."""
     import torch
 
     try:
@@ -47,6 +51,35 @@ def _device(text: str) -> str:
     except RuntimeError as e:
         raise argparse.ArgumentTypeError(str(e)) from None
     return text
+
+
+def _device(text: str) -> str:
+    """argparse type of a decode's ``--device``: ``native`` (the host C++
+    decoder), or any string ``torch.device`` takes."""
+    from . import native
+
+    return text if native.is_native(text) else _torch_device(text)
+
+
+#: the refusal of ``--check`` on ``--device native`` (the JAX CLI's, with
+#: ``--device`` for ``--backend``)
+NATIVE_CHECK_REFUSAL = (
+    "--check requires --device cuda (the on-device integrity check is "
+    "emitted by the CUDA decode kernel)")
+
+#: the end-bit line of ``verify`` on ``--device native``
+END_BIT_SKIPPED = "skipped (needs --device cuda)"
+
+
+def _native(device) -> bool:
+    from . import native
+
+    return native.is_native(device)
+
+
+def _refuse_native_check(device, check: bool) -> None:
+    if check and _native(device):
+        raise SystemExit(NATIVE_CHECK_REFUSAL)
 
 
 def _add_codec_flags(p: argparse.ArgumentParser) -> None:
@@ -62,8 +95,9 @@ def _add_codec_flags(p: argparse.ArgumentParser) -> None:
                         "than the raster delta on photos, still "
                         "block-parallel (beyond-reference mode)")
     p.add_argument("--device", type=_device, default="cuda",
-                   help="decode device: cuda (default), cuda:N, or cpu "
-                        "(the kernels' plain PyTorch versions)")
+                   help="decode device: cuda (default), cuda:N, cpu (the "
+                        "kernels' plain PyTorch versions), or native (the "
+                        "multithreaded host C++ decoder)")
 
 
 def _config(args):
@@ -918,6 +952,7 @@ def _cmd_decode_video_temporal(args, data: bytes, cfg, check: bool,
         print(f"{args.input}: decoded frame {args.frame} ({h}x{w}, "
               f"keyint {keyint}{checked}) in {dt:.3f} s -> {args.output}")
         return 0
+    _refuse_native_check(args.device, check)
     t0 = time.perf_counter()
     if not check:
         # decode and temporal fold on the device, one fetch; the outer CRC
@@ -963,10 +998,15 @@ def _fold_on_device(planes: np.ndarray, device, keyint: int, mvs,
     """An MHVT's checked residual planes, fetched for their CRC checks (and
     salvaged blocks zeroed) -> its true frames: a copy of the planes goes
     back to ``device`` and folds there (``temporal.fold_planes``), then one
-    fetch."""
+    fetch. On ``native`` the planes fold on the host, as in the JAX CLI."""
     import torch
 
-    from .models import temporal
+    from .models import color, temporal
+
+    if _native(device):
+        res = planes if cinfo is None else color.fold_video_planes(
+            planes, *cinfo)
+        return temporal._fold_host(res, keyint, mvs, first_len)
 
     x = torch.from_numpy(np.ascontiguousarray(planes)).to(device, copy=True)
     return temporal.fold_planes(x, keyint, mvs, first_len,
@@ -1141,6 +1181,7 @@ def _cmd_decode_video_streaming(args, data: bytes, cfg, check: bool,
     cfg = dataclasses.replace(
         cfg, block_dim=bd, delta=delta,
         delta2d=bool(segs) and segs[0][0].predictor == "2d")
+    _refuse_native_check(args.device, check)
     t0 = time.perf_counter()
     out = Path(args.output)
     npy, sink, save = _streamed_sink(out, total, h, w, channels, kind)
@@ -1219,6 +1260,7 @@ def _cmd_decode_video_streaming_mhts(args, data: bytes, cfg, check: bool,
     from .models import color as color_mod
     from .models import frame_stream
 
+    _refuse_native_check(args.device, check)
     try:
         total = frame_stream.stream_frame_count(data)
         first = next(frame_stream._iter_stream_records(data), None)
@@ -1389,6 +1431,7 @@ def cmd_decode_video(args) -> int:
         print(f"{args.input}: decoded frames [{a}, {b}) ({h}x{w}) in "
               f"{dt:.3f} s -> {args.output}")
         return 0
+    _refuse_native_check(args.device, check)
     t0 = time.perf_counter()
     frames, t, h, w, bad = _decode_video_frames(data, cfg, args.device,
                                                 check, salvage)
@@ -1420,6 +1463,7 @@ def _cmd_decode_video_color(args, data: bytes, cfg, check: bool,
             f"{args.input} is an MHTC image container — use decode")
     save = imageio.save_gray16 if kind == color.KIND_U16 else \
         imageio.save_color
+    _refuse_native_check(args.device, check)
     if args.frames is not None:
         if check:
             raise SystemExit(
@@ -1642,16 +1686,18 @@ def _cmd_verify_streaming_temporal(args, data: bytes) -> int:
 
 def _cmd_verify_streaming_mhts(args, data: bytes, cfg) -> int:
     """verify --streaming on an MHTS container, one frame at a time: the
-    end-bit check and the recorded CRC of each frame."""
+    end-bit check (not on ``native``) and the recorded CRC of each
+    frame."""
     from .models import frame_stream
 
+    checked = not _native(args.device)
     total = 0
     with_crc = 0
     h = w = None
     try:
         for i, frame, err, crc in frame_stream.iter_stream_frames(
-                data, cfg, check=True, device=args.device):
-            if err.any():
+                data, cfg, check=checked, device=args.device):
+            if err is not None and err.any():
                 raise _integrity_failure(np.nonzero(err)[0], f" in frame {i}")
             if crc:
                 with_crc += 1
@@ -1668,7 +1714,8 @@ def _cmd_verify_streaming_mhts(args, data: bytes, cfg) -> int:
         # "verified nothing" is not a PASS
         raise SystemExit("empty MHTS stream")
     print(f"MHTS: {total} frames {h}x{w} (streamed, per-frame tables)")
-    print(f"  {'end-bit check':<14} ok (per frame)")
+    print(f"  {'end-bit check':<14} "
+          + ("ok (per frame)" if checked else END_BIT_SKIPPED))
     print(f"  {'decode':<14} ok ({total} frames, {args.device}, streamed)")
     print(f"  {'source CRC-32':<14} "
           + (f"ok (per frame, {with_crc})" if with_crc else "absent"))
@@ -1713,11 +1760,18 @@ def _cmd_verify_streaming(args, data: bytes, cfg) -> int:
         delta2d=bool(segs) and segs[0][0].predictor == "2d")
     fcrcs = frame_stream.read_frame_crcs(inner)
     recorded = frame_stream.source_crc32(inner)
+    checked = not _native(args.device)
+    if checked:
+        chunks = frame_stream.iter_frames_segmented_checked(
+            segs, h, w, vcfg, device=args.device)
+    else:  # native: no end-bit check, the CRCs as below
+        chunks = ((si, fr, None) for si, fr in enumerate(
+            frame_stream.iter_frames_segmented(segs, h, w, vcfg,
+                                               device=args.device)))
     crc = 0
     base = 0
-    for si, fr, err in frame_stream.iter_frames_segmented_checked(
-            segs, h, w, vcfg, device=args.device):
-        if err.any():
+    for si, fr, err in chunks:
+        if err is not None and err.any():
             raise _integrity_failure(np.nonzero(err)[0], f" in segment {si}")
         crc = zlib.crc32(np.ascontiguousarray(fr).tobytes(), crc)
         try:
@@ -1731,7 +1785,7 @@ def _cmd_verify_streaming(args, data: bytes, cfg) -> int:
             "stream is corrupt")
     print(f"{wrapper}MHV2: {t} frames {h}x{w} (streamed, "
           f"{len(segs)} segments)")
-    print(f"  {'end-bit check':<14} ok")
+    print(f"  {'end-bit check':<14} " + ("ok" if checked else END_BIT_SKIPPED))
     print(f"  {'decode':<14} ok ({base} frames, {args.device}, streamed)")
     print(f"  {'source CRC-32':<14} " + ("ok" if recorded else "absent"))
     print(f"  {'frame CRC table':<13} "
@@ -1752,6 +1806,7 @@ def cmd_verify(args) -> int:
     cfg = _config(args)
     if args.streaming:
         return _cmd_verify_streaming(args, data, cfg)
+    checked = not _native(args.device)  # native: no end-bit check
     lines = []
 
     def report(name: str, status: str) -> None:
@@ -1793,11 +1848,16 @@ def cmd_verify(args) -> int:
             dcfg = dataclasses.replace(cfg, block_dim=bd, delta=delta,
                                        delta2d=stream.predictor == "2d")
             prep = frame_stream.prepare_shared(
-                stream, 1, h, w, dcfg, device=args.device, check=True)
-            img, err = frame_stream.decode_shared_step_checked(prep, dcfg)
-            if err.any():
-                raise _integrity_failure(np.nonzero(err)[0])
-            report("end-bit check", f"ok ({int(err.size)} blocks)")
+                stream, 1, h, w, dcfg, device=args.device, check=checked)
+            if checked:
+                img, err = frame_stream.decode_shared_step_checked(prep,
+                                                                   dcfg)
+                if err.any():
+                    raise _integrity_failure(np.nonzero(err)[0])
+                report("end-bit check", f"ok ({int(err.size)} blocks)")
+            else:
+                img = frame_stream.decode_shared_step(prep, dcfg)
+                report("end-bit check", END_BIT_SKIPPED)
             out = img.cpu().numpy().reshape(h, w)
             if crc and zlib.crc32(out.tobytes()) != crc:
                 raise SystemExit(
@@ -1810,9 +1870,9 @@ def cmd_verify(args) -> int:
                           frame_stream.STREAM_MAGIC):
             kind = bytes(data[:4]).decode("ascii")
             frames, t, h, w, _bad = _decode_video_frames(
-                data, cfg, args.device, check=True)
+                data, cfg, args.device, check=checked)
             head = f"{kind}: {t} frames {h}x{w}"
-            report("end-bit check", "ok")
+            report("end-bit check", "ok" if checked else END_BIT_SKIPPED)
             report("decode", f"ok ({t} frames, {args.device})")
             recorded = _verify_video_crc(data, frames)
             report("source CRC-32", "ok" if recorded else "absent")
@@ -2044,7 +2104,7 @@ def main(argv=None) -> int:
                    metavar=("A", "B"))
     p.add_argument("--device", type=_device, default="cuda",
                    help="decode device of an MHVT mid-group start: cuda "
-                        "(default), cuda:N, or cpu")
+                        "(default), cuda:N, cpu, or native")
     p.set_defaults(fn=cmd_extract)
 
     p = sub.add_parser(
@@ -2105,7 +2165,7 @@ def main(argv=None) -> int:
                    default="synthetic")
     p.add_argument("--precoder", choices=["delta", "delta2d"],
                    default="delta")
-    p.add_argument("--device", type=_device, default="cuda")
+    p.add_argument("--device", type=_torch_device, default="cuda")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

@@ -53,14 +53,17 @@ def build_single_table(widths: np.ndarray):
 class SplitTables:
     """Two-level decode tables, slab layout identical to the reference."""
 
-    t1_symbol: np.ndarray  # (2^K1,) uint8: symbol, or T2 table index if escape
-    t1_width: np.ndarray  # (2^K1,) uint8: code width; 0 marks an escape entry
-    t2_symbol: np.ndarray  # (num_tables * 2^K2,) uint8
-    t2_width: np.ndarray  # (num_tables * 2^K2,) uint8 (full code width)
+    t1_symbol: np.ndarray  # (2^k1,) uint8: symbol, or T2 table index if escape
+    t1_width: np.ndarray  # (2^k1,) uint8: code width; 0 marks an escape entry
+    t2_symbol: np.ndarray  # (num_tables * 2^k2,) uint8
+    t2_width: np.ndarray  # (num_tables * 2^k2,) uint8 (full code width)
+    #: the split; ``native.build_split_tables`` builds any k1 + k2 = 16
+    k1: int = K1
+    k2: int = K2
 
     @property
     def num_t2_tables(self) -> int:
-        return self.t2_symbol.size >> K2
+        return self.t2_symbol.size >> self.k2
 
 
 def build_split_tables(widths: np.ndarray) -> SplitTables:

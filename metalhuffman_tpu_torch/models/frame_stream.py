@@ -28,7 +28,13 @@ explicit device and decodes all its frames in one launch:
 
 Every decode takes ``device`` (default ``"cuda"``) in place of the JAX
 package's ``backend``: CUDA tensors run the kernels, CPU tensors their plain
-versions.
+versions, and ``device="native"`` the host C++ decoder
+(``native.decode_blocks``, multithreaded over block ranges; the JAX
+package's ``backend="native"``). A native decode stages nothing
+(:class:`PreparedNative`) and returns CPU tensors where the device routes
+return tensors on their device. The end-bit check is an output of the
+kernels, so the checked decodes refuse ``native``, as the JAX package's do;
+the region decode checks its blocks by re-encoding them instead.
 """
 
 from __future__ import annotations
@@ -264,14 +270,33 @@ class PreparedShared:
     last_window: tuple | None = None
 
 
+@dataclass(frozen=True)
+class PreparedNative:
+    """A shared-table batch for the host C++ decoder (``device="native"``):
+    nothing is staged, the stream stays on the host."""
+
+    stream: container.EncodedStream
+    num_frames: int
+    height: int
+    width: int
+    block_dim: int
+
+
+#: the refusal of a checked decode on ``device="native"``
+NATIVE_CHECK_ERROR = ("the stream-integrity check runs on the device decode "
+                      "path; use device='cuda'")
+
+
 def prepare_shared(stream: container.EncodedStream, num_frames: int,
                    height: int, width: int, config: CodecConfig | None = None,
-                   *, device="cuda", check: bool = False) -> PreparedShared:
+                   *, device="cuda",
+                   check: bool = False) -> PreparedShared | PreparedNative:
     """Stage a shared-table stream's decode inputs on ``device``: the code
     words its blocks reach (all of them for a whole stream, a frame range's
     own for a :func:`frame_slice` view), the offsets, the interval table
     (the plain versions') and the lookup table (the kernels'); with
-    ``check`` also the targets of :func:`decode_shared_step_checked`."""
+    ``check`` also the targets of :func:`decode_shared_step_checked`.
+    ``device="native"`` stages nothing and refuses ``check``."""
     cfg = config or CodecConfig()
     bh, bw = blocks.block_grid(height, width, cfg.block_dim)
     nb = num_frames * bh * bw
@@ -279,6 +304,11 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
         raise ValueError(
             f"stream has {stream.block_offsets.size} blocks, {num_frames} "
             f"frames of {height}x{width} need {nb}")
+    if native.is_native(device):
+        if check:
+            raise ValueError(NATIVE_CHECK_ERROR)
+        return PreparedNative(stream, num_frames, height, width,
+                              cfg.block_dim)
     meta = decode_cuda.canonical_meta(stream.widths)
     code, offsets = decode_cuda.stream_window(stream, cfg.block_size)
     words, _ = decode_cuda.stage_words([code], device)
@@ -303,12 +333,30 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
         init_grid, end_targets, last_window)
 
 
-def _decode(prep: PreparedShared, cfg: CodecConfig, raw: bool,
-            emit_end: bool):
+def _decode_native(prep: PreparedNative, cfg: CodecConfig) -> np.ndarray:
+    """The host C++ decode of a batch -> contiguous (T, H, W) uint8: every
+    block decoded with its precoder undone, the zero-init roots added, then
+    the blocks laid out as frames."""
+    stream, t, bd = prep.stream, prep.num_frames, prep.block_dim
+    blk = native.decode_blocks(
+        stream, delta=cfg.delta and not cfg.delta2d,
+        block_size=cfg.block_size, delta2d=cfg.delta2d)
+    if stream.block_init is not None:
+        blk = delta_mod.apply_block_init(blk, stream.block_init)
+    bh, bw = blocks.block_grid(prep.height, prep.width, bd)
+    img = blk.reshape(t, bh, bw, bd, bd).transpose(0, 1, 3, 2, 4).reshape(
+        t, bh * bd, bw * bd)
+    return np.ascontiguousarray(img[:, : prep.height, : prep.width])
+
+
+def _decode(prep: PreparedShared | PreparedNative, cfg: CodecConfig,
+            raw: bool, emit_end: bool):
     """One launch over the staged batch -> (result, end bits or None)."""
     if cfg.block_dim != prep.block_dim:
         raise ValueError(f"batch was staged for block_dim {prep.block_dim}, "
                          f"config has {cfg.block_dim}")
+    if isinstance(prep, PreparedNative):
+        return torch.from_numpy(_decode_native(prep, cfg)), None
     # delta2d replaces the 1-D delta in the symbol chain
     kdelta = cfg.delta and not cfg.delta2d
     t, bh, bw, bd = prep.num_frames, prep.bh, prep.bw, prep.block_dim
@@ -356,7 +404,8 @@ def decode_shared_step(prep: PreparedShared, config: CodecConfig | None = None,
     blocks it returns the kernel's (T, bh*8, bw*8) output untouched
     (:func:`frames_from_raw` crops it as a view); zero-init streams need the
     image form, which folds the root bytes in after the kernel. Other block
-    sizes have no raw form and always return the image form.
+    sizes, and a :class:`PreparedNative` batch (a CPU tensor), have no raw
+    form and always return the image form.
     """
     return _decode(prep, config or CodecConfig(), raw, emit_end=False)[0]
 
@@ -373,7 +422,7 @@ def decode_shared_step_checked(prep: PreparedShared,
     The kernel stores one more int32 per block; the comparison runs on the
     device and only the mask comes back to the host.
     """
-    if prep.end_targets is None:
+    if not isinstance(prep, PreparedShared) or prep.end_targets is None:
         raise ValueError("prepare_shared(..., check=True) required")
     result, end = _decode(prep, config or CodecConfig(), raw, emit_end=True)
     err = decode_cuda.check_block_ends(end, prep.end_targets)
@@ -577,7 +626,10 @@ def iter_frames_segmented_checked(
     err)``, numpy (t, H, W) uint8 frames and the segment's stream-order
     (nb,) bool mask of :func:`decode_shared_step_checked`. The caller
     decides whether a flagged segment fails or is salvaged
-    (:func:`salvage_blocks`)."""
+    (:func:`salvage_blocks`). ``device="native"`` is refused: the check is
+    an output of the kernels."""
+    if native.is_native(device):
+        raise ValueError(NATIVE_CHECK_ERROR)
     cfg = config or CodecConfig()
     for si, (stream, t) in enumerate(segments):
         prep = prepare_shared(stream, t, height, width, cfg, device=device,
@@ -631,7 +683,8 @@ class StreamingDecoder:
                               device=self.device)
         # the raw 8x8 output skips the crop copy, but cannot carry the
         # zero-init root fold: zero-init batches take the image form
-        raw = prep.block_dim == 8 and prep.init_grid is None
+        raw = (isinstance(prep, PreparedShared) and prep.block_dim == 8
+               and prep.init_grid is None)
         return prep, decode_shared_step(prep, self.config, raw=raw), raw
 
     def result(self, handle) -> np.ndarray:
@@ -771,7 +824,11 @@ def decode_container_device(data: bytes, config: CodecConfig | None = None,
     """MHTV/MHV2 container bytes -> (T, H, W) uint8 tensor on ``device``,
     with no host fetch and no CRC check (for a consumer that goes on with
     device work and verifies after its own fetch). Segments decode one
-    after another and are joined by ``torch.cat``."""
+    after another and are joined by ``torch.cat``. ``device="native"`` is
+    refused, as the JAX package refuses its native backend here."""
+    if native.is_native(device):
+        raise ValueError(
+            "decode_container_device needs a torch device, not 'native'")
     if data[:4] == SHARED_MAGIC:
         stream, t, h, w, bd, delta = read_shared(data)
         segs = [(stream, t)]
@@ -1009,6 +1066,10 @@ def iter_stream_frames(data: bytes, config: CodecConfig | None = None,
             raise ValueError("MHTS frames must share geometry")
         fcfg = _container_config(config, bd, delta, s.predictor)
         if check:
+            if native.is_native(device):
+                raise ValueError(
+                    "the end-bit integrity check needs a torch device "
+                    "(cuda, or cpu for the plain versions)")
             prep = prepare_shared(s, 1, h, w, fcfg, device=device, check=True)
             img, err = decode_shared_step_checked(prep, fcfg)
             yield i, img.cpu().numpy()[0], err, crc

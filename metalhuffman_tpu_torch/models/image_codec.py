@@ -13,7 +13,8 @@ through ``frame_stream``: 8x8 blocks in one launch of the image kernel
 the packed-block kernel, which reads its offsets in any order.
 
 ``device`` takes the place of the JAX package's ``backend``: CUDA tensors run
-the kernels, CPU tensors their plain PyTorch versions.
+the kernels, CPU tensors their plain PyTorch versions, and ``device="native"``
+the host C++ decoder (``native.decode_blocks``), which stages nothing.
 """
 
 from __future__ import annotations
@@ -239,9 +240,17 @@ def decode_blocks_selection(stream: container.EncodedStream,
     With ``check`` the return is ``(image, err_mask)``, ``err_mask`` an
     (n_sel,) bool numpy array in selection order from the kernel's end bits
     against the offset index.
+
+    ``device="native"`` decodes the selection with the host C++ decoder
+    into a CPU tensor; its ``check`` re-applies the forward precoder to the
+    decoded blocks and sums their code widths for the end bits (the code is
+    prefix-free, so re-encoding the decoded symbols gives the decoder's end
+    position: the same check, computed from the other side).
     """
     sel = np.asarray(sel, np.int64)
     bd = cfg.block_dim
+    if native.is_native(device):
+        return _decode_selection_native(stream, sel, gh, gw, cfg, check)
     # delta2d reconstructs in the kernel at 8x8 only
     in_kernel_d2 = cfg.delta2d and bd == 8
     staged, table = stage_selection(stream, sel, device=device)
@@ -261,3 +270,34 @@ def decode_blocks_selection(stream: container.EncodedStream,
         return img, _check_selection_ends(stream, sel, end.cpu().numpy(),
                                           cfg.block_size)
     return img
+
+
+def _decode_selection_native(stream: container.EncodedStream,
+                             sel: np.ndarray, gh: int, gw: int,
+                             cfg: CodecConfig, check: bool):
+    """:func:`decode_blocks_selection` on the host C++ decoder."""
+    bd = cfg.block_dim
+    kdelta = cfg.delta and not cfg.delta2d
+    sub_offsets = stream.block_offsets[sel]
+    sub = container.EncodedStream(
+        sel.size * cfg.block_size, stream.widths, stream.code_bytes,
+        sub_offsets.astype(np.uint32), predictor=stream.predictor)
+    blk = native.decode_blocks(sub, delta=kdelta, block_size=cfg.block_size,
+                               delta2d=cfg.delta2d)
+    err = None
+    if check:
+        if kdelta:
+            raw = native.delta_encode(blk.ravel(), cfg.block_size)
+        elif cfg.delta2d:
+            raw = native.delta2d_encode(blk.ravel(), bd)
+        else:
+            raw = blk.ravel()
+        bits = (stream.widths[raw].reshape(sel.size, cfg.block_size)
+                .astype(np.int64).sum(axis=1))
+        end = (sub_offsets.astype(np.int64) & 31) + bits
+        err = _check_selection_ends(stream, sel, end, cfg.block_size)
+    if stream.block_init is not None:
+        blk = delta_mod.apply_block_init(blk, stream.block_init[sel])
+    img = torch.from_numpy(np.ascontiguousarray(
+        blocks.blocks_to_image(blk, gh, gw, bd)))
+    return (img, err) if check else img

@@ -29,7 +29,10 @@ the plane fold (``color.fold_video_planes_torch``), then the group fold
 (:func:`temporal_fold_mc`) on the true frames, then one fetch and the CRCs.
 The JAX package's packed-word folds exist because a TPU lane is 32 bits
 wide and has no byte addressing; a CUDA card addresses bytes, so the port
-folds byte and 16-bit frames directly.
+folds byte and 16-bit frames directly. With ``device="native"`` the inner
+decodes on the host C++ decoder and the folds are the numpy ones
+(:func:`temporal_decode`, :func:`temporal_decode_mc`,
+``color.fold_video_planes``), as on the JAX package's native backend.
 """
 
 from __future__ import annotations
@@ -755,6 +758,13 @@ def _fold(res: torch.Tensor, keyint: int, mvs, first_len) -> torch.Tensor:
     return temporal_fold(res, keyint, first_len)
 
 
+def _fold_host(res: np.ndarray, keyint: int, mvs, first_len) -> np.ndarray:
+    """:func:`_fold` on the host, for ``device="native"``."""
+    if mvs is not None:
+        return temporal_decode_mc(res, keyint, mvs, first_len=first_len)
+    return temporal_decode(res, keyint, first_len=first_len)
+
+
 def fold_planes(planes: torch.Tensor, keyint: int, mvs, first_len,
                 cinfo) -> torch.Tensor:
     """An MHVT's decoded (N, H, W) uint8 residual planes -> its true frames,
@@ -779,6 +789,10 @@ def decode_temporal_video(blob: bytes, device="cuda") -> np.ndarray:
     header. A container with no outer CRC checks the inner's CRC on the
     residual planes instead, which costs a fetch of them. Nothing is
     returned unchecked, and there is no other route.
+
+    ``device="native"`` decodes the inner on the host C++ decoder with its
+    own CRC check, folds on the host, then checks the outer CRC: both CRCs,
+    as the JAX package's native backend does.
     """
     from .. import decode_video
 
@@ -789,6 +803,18 @@ def decode_temporal_video(blob: bytes, device="cuda") -> np.ndarray:
         if t_header is not None and mvs.shape[0] != t_header:
             raise ValueError(_MOTION_TABLE_ERROR)
     planes_blob, cinfo = _plane_inner(inner)
+    if native.is_native(device):
+        res = decode_video(planes_blob, device)  # checks the inner's CRC
+        if cinfo is not None:
+            res = color.fold_video_planes(res, *cinfo)
+        frames = _fold_host(res, keyint, mvs, first_len)
+        if crc and _crc(frames) != crc:
+            raise ValueError(
+                "reconstructed frames fail the MHVT source CRC-32 — corrupt "
+                "container (the inner residual stream verified, so the "
+                "wrapper header itself is suspect)")
+        _verify_frame_crcs(frames, fcrcs)
+        return frames
     planes = frame_stream.decode_container_device(planes_blob, device=device)
     if not crc:
         frame_stream.verify_source_crc32(
@@ -845,15 +871,20 @@ def _decode_temporal_range_parsed(parts, a: int, b: int,
     # the span starts at a group boundary; it inherits the short first
     # group only when it starts at the very beginning of the stream
     span_fl = first_len if kf == 0 else None
+    # native: the inner range is fetched (and checked against an inner
+    # per-frame CRC table) and folds on the host, as in the JAX package
+    host = native.is_native(device)
     if cinfo is not None:
         channels = cinfo[0]
         planes, _h, _w = frame_stream.decode_range_parsed(
-            parsed, kf * channels, b * channels, to_host=False,
+            parsed, kf * channels, b * channels, to_host=host,
             device=device)
-        res = color.fold_video_planes_torch(planes, *cinfo)
+        fold = (color.fold_video_planes if host
+                else color.fold_video_planes_torch)
+        res = fold(planes, *cinfo)
     else:
         res, h, w = frame_stream.decode_range_parsed(
-            parsed, kf, b, to_host=False, device=device)
+            parsed, kf, b, to_host=host, device=device)
         res = res.reshape(-1, h, w)
     if mvs is not None:
         if mvs.shape[0] < b:
@@ -861,7 +892,10 @@ def _decode_temporal_range_parsed(parts, a: int, b: int,
                 "corrupt MHVT container (motion table shorter than the "
                 "stream)")
         mvs = mvs[kf:b]
-    out = _fold(res, keyint, mvs, span_fl)[a - kf :].cpu().numpy()
+    if host:
+        out = _fold_host(res, keyint, mvs, span_fl)[a - kf :]
+    else:
+        out = _fold(res, keyint, mvs, span_fl)[a - kf :].cpu().numpy()
     _verify_frame_crcs(out, fcrcs, base=a)
     return out
 

@@ -35,6 +35,9 @@ from metalhuffman_tpu_torch.models import (color, frame_stream, surgery,
 from metalhuffman_tpu_torch.models import stream_writer as tsw
 from metalhuffman_tpu_torch.models.config import CodecConfig
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 CPU = {"device": "cpu"}
 
 

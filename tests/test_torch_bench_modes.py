@@ -27,6 +27,9 @@ from metalhuffman_tpu_torch.models import frame_stream
 from metalhuffman_tpu_torch.models.image_codec import ImageCodec
 from metalhuffman_tpu_torch.utils import fixtures
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from metalhuffman_tpu import cli as jcli
 from metalhuffman_tpu.core import decode_ref as jdecode_ref
@@ -36,6 +37,9 @@ from metalhuffman_tpu_torch.models import temporal as ttemporal
 from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.models.image_codec import ImageCodec
 from metalhuffman_tpu_torch.utils import imageio, profiling
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 CPU = ["--device", "cpu"]
 NATIVE = ["--backend", "native"]
@@ -875,3 +879,84 @@ def test_streamed_surgery_errors_are_clean(surgery_files, tmp_path):
         args = [str(tmp_path / a) if a in surgery_files or a in ("o", "cut")
                 else a for a in argv]
         assert msg in _exit_message(cli.main, *args)
+
+
+# -- --device native: the host C++ decoder ----------------------------------------
+
+TNATIVE = ["--device", "native"]
+NATIVE_DECODES = {
+    # id: (command, container, flags, output suffix)
+    "mht1": ("decode", "mht1", [], ".png"),
+    "mht1-zero-init": ("decode", "mht1-zero-init", [], ".png"),
+    "mhtc-image": ("decode", "mhtc-image", [], ".png"),
+    "mhtv": ("decode-video", "mhtv", [], ".npy"),
+    "mhv2": ("decode-video", "mhv2", [], ".npy"),
+    "mhts": ("decode-video", "mhts", [], ".npy"),
+    "mhvt": ("decode-video", "mhvt", [], ".npy"),
+    "mhvt-mc": ("decode-video", "mhvt-mc", [], ".npy"),
+    "mhvt-color": ("decode-video", "mhvt-color", [], ".npy"),
+    "mhtc-u16": ("decode-video", "mhtc-u16", [], ".npy"),
+    "frames": ("decode-video", "mhv2", ["--frames", "3", "9"], ".npy"),
+    "frame": ("decode-video", "mhts", ["--frame", "3"], ".npy"),
+    "region-check": ("decode-video", "mhv2",
+                     ["--region", "3", "5", "30", "40", "--frames", "2", "7",
+                      "--check"], ".npy"),
+    "temporal-frames": ("decode-video", "mhvt-mc", ["--frames", "3", "9"],
+                        ".npy"),
+    "streamed": ("decode-video", "mhv2", ["--streaming"], ".npy"),
+}
+
+
+@pytest.mark.parametrize("case", NATIVE_DECODES)
+def test_native_decodes_match_the_jax_cli(case, blobs, tmp_path):
+    cmd, name, flags, suffix = NATIVE_DECODES[case]
+    out_t, out_j = tmp_path / f"t{suffix}", tmp_path / f"j{suffix}"
+    _run(cli.main, cmd, blobs[name], out_t, *flags, *TNATIVE)
+    _run(jcli.main, cmd, blobs[name], out_j, *flags, *NATIVE)
+    assert out_t.read_bytes() == out_j.read_bytes()
+
+
+NATIVE_REFUSALS = {
+    # id: (container, flags)
+    "mhtv": ("mhtv", []),
+    "mhts": ("mhts", []),
+    "mhvt": ("mhvt-mc", []),
+    "mhtc": ("mhtc-video", []),
+    "streamed-mhv2": ("mhv2", ["--streaming"]),
+    "streamed-mhts": ("mhts-streamed", ["--streaming"]),
+}
+
+
+@pytest.mark.parametrize("case", NATIVE_REFUSALS)
+def test_native_check_is_refused_with_the_jax_message(case, blobs, tmp_path):
+    name, flags = NATIVE_REFUSALS[case]
+    ours = _exit_message(cli.main, "decode-video", blobs[name],
+                         tmp_path / "t.npy", "--check", *flags, *TNATIVE)
+    theirs = _exit_message(jcli.main, "decode-video", blobs[name],
+                           tmp_path / "j.npy", "--check", *flags, *NATIVE)
+    assert ours == cli.NATIVE_CHECK_REFUSAL
+    assert ours == theirs.replace("--backend pallas", "--device cuda").replace(
+        "TPU", "CUDA")
+    assert not (tmp_path / "t.npy").exists()
+
+
+@pytest.mark.parametrize("name,flags", [
+    ("mht1", []), ("mhtv", []), ("mhv2", []), ("mhts", []), ("mhvt-mc", []),
+    ("mhtc-u16", []), ("mhv2", ["--streaming"]),
+    ("mhts-streamed", ["--streaming"])])
+def test_native_verify_prints_the_jax_lines(name, flags, blobs, capsys):
+    _run(jcli.main, "verify", blobs[name], *flags, *NATIVE)
+    want = capsys.readouterr().out.replace("--backend pallas",
+                                           "--device cuda")
+    _run(cli.main, "verify", blobs[name], *flags, *TNATIVE)
+    got = capsys.readouterr().out
+    assert got == want
+    assert f"end-bit check  {cli.END_BIT_SKIPPED}" in got
+    assert got.rstrip().endswith("PASS")
+
+
+def test_device_native_parses_and_bench_refuses_it():
+    ap_err = _exit_message(cli.main, "bench", "--device", "native")
+    assert ap_err == "2"  # argparse refuses the value
+    assert cli._device("native") == "native"
+    assert cli._device("cpu") == "cpu"

@@ -15,12 +15,16 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import metalhuffman_tpu
 import metalhuffman_tpu_torch
 from metalhuffman_tpu.models import CodecConfig as JaxConfig
 from metalhuffman_tpu_torch.models import frame_stream as tfs
 from metalhuffman_tpu_torch.models.config import CodecConfig
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 FRAMES = (np.arange(2 * 7 * 19).reshape(2, 7, 19) * 3 % 256).astype(np.uint8)
 

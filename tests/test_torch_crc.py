@@ -7,9 +7,13 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from metalhuffman_tpu.core import crc as jcrc
 from metalhuffman_tpu_torch.core import crc
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 LENGTHS = {
     "empty-empty": [0, 0],

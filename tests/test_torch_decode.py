@@ -18,6 +18,9 @@ from metalhuffman_tpu.models import CodecConfig, frame_stream
 from metalhuffman_tpu.ops import decode_pallas
 from metalhuffman_tpu_torch.ops import decode_cuda
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 
 def _frames(t, h, w, seed=0):
     rng = np.random.default_rng(seed)

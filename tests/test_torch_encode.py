@@ -22,6 +22,9 @@ from metalhuffman_tpu_torch.models import frame_stream
 from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.ops import encode_cuda
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 
 def _datasets():
     """The five sets of tests/test_encode_pallas.py, same seed and order."""

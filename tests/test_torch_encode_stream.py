@@ -21,6 +21,9 @@ from metalhuffman_tpu.ops import encode_pallas
 from metalhuffman_tpu_torch import _build, native
 from metalhuffman_tpu_torch.ops import encode_cuda
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 M32 = np.uint64(0xFFFFFFFF)
 LANE_SYMBOLS = 16  # the kernel's constants (csrc/encode_stream.cu)
 WARP_BLOCKS = 8

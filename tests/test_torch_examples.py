@@ -36,6 +36,9 @@ from metalhuffman_tpu_torch import bench
 from metalhuffman_tpu_torch.models import temporal as ttemporal
 from metalhuffman_tpu_torch.utils import fixtures as tfx
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 CPU = ["--device", "cpu"]
 TIMEOUT = 300  # seconds for a twin's subprocess
@@ -300,9 +303,21 @@ def test_perf_matrix_twin_table(monkeypatch, capsys):
     monkeypatch.setattr(bench, "run_video", runner("video", 1.5))
     monkeypatch.setattr(bench, "run_temporal", runner("temporal", 0.94))
     monkeypatch.setattr(bench, "run_temporal_ext", runner("ext", 9.4))
+    native_calls = []
+    run_native = bench.run_native
+
+    def native(*a, **kw):  # the real host decode, at 3 frames
+        native_calls.append((a, kw))
+        return run_native(*a, **kw)
+
+    monkeypatch.setattr(bench, "run_native", native)
     rows = _load("scripts/perf_matrix_torch.py").main(
         [*CPU, "--frames", "3", "--iters", "4", "--variants", "2"])
     b1 = "B1 plain version"
+    assert native_calls == [((1536, 2048, 3, 4), {"content": "photo"})]
+    assert rows[-1][:3] == ("2048x1536", "photo", "C++ host (all cores)")
+    assert rows[-1][3] > 0
+    rows = rows[:-1]
     assert [r[:3] for r in rows] == [
         ("2048x1536", "synthetic", b1), ("2048x1536", "photo", b1),
         ("1920x1080", "synthetic", b1), ("1920x1080", "photo", b1),
@@ -329,4 +344,6 @@ def test_perf_matrix_twin_table(monkeypatch, capsys):
     assert "| 2048x1536 | synthetic | B1 plain version | 1.50 | 16x |" in lines
     assert "| 2048x1536 | photo | MHVT fold (plain gray) | 0.94 | 10x |" \
         in lines
+    assert any(ln.startswith("| 2048x1536 | photo | C++ host (all cores) | ")
+               for ln in lines)
     assert "| 2048x1536 | photo | MHVT fold (u16) | 9.40 | 100x |" in lines

@@ -4,9 +4,13 @@ renders the same array."""
 
 import numpy as np
 import pytest
+import torch
 
 from metalhuffman_tpu.utils import fixtures as jfx
 from metalhuffman_tpu_torch.utils import fixtures as tfx
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 UNKNOWN = "no_such_config"
 PATH = "path=bridge_512x512.png"

@@ -11,6 +11,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import metalhuffman_tpu
 import metalhuffman_tpu_torch
@@ -20,6 +21,9 @@ from metalhuffman_tpu.models import CodecConfig as JaxConfig
 from metalhuffman_tpu.models import frame_stream as jfs
 from metalhuffman_tpu_torch.models import frame_stream as tfs
 from metalhuffman_tpu_torch.models.config import CodecConfig
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 CONFIGS = {
     "none": {"delta": False},

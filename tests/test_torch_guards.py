@@ -16,6 +16,9 @@ import torch
 from metalhuffman_tpu_torch import _build, native
 from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
@@ -66,6 +69,15 @@ mhvt = metalhuffman_tpu_torch.encode_video(
     pan, CodecConfig(temporal=True, motion=True, keyint=3))
 assert mhvt[:4] == b"MHVT"
 assert (metalhuffman_tpu_torch.decode_video(mhvt, "cpu") == pan).all()
+# the host C++ decoder (device="native") and its bindings
+assert (metalhuffman_tpu_torch.decode_video(blob, "native") == frames).all()
+assert (metalhuffman_tpu_torch.decode_video(mhvt, "native") == pan).all()
+assert (native.decode_serial_split(stream.code_bytes, stream.widths, 99, 3, 11)
+        == native.decode_serial(stream.code_bytes, stream.widths, 99, 3)).all()
+assert native.build_split_tables(stream.widths, 12, 4).k1 == 12
+assert (native.delta_decode(native.delta_encode(payload)) == payload).all()
+assert (native.delta2d_decode(native.delta2d_encode(frames.ravel())) ==
+        frames.ravel()).all()
 rgb = np.stack([pan, pan // 2, 255 - pan], axis=-1)
 mhtc = metalhuffman_tpu_torch.encode_color_video(rgb)
 assert mhtc[:4] == b"MHTC"

@@ -17,6 +17,9 @@ from metalhuffman_tpu.core import delta as jdelta
 from metalhuffman_tpu_torch import native
 from metalhuffman_tpu_torch.core import bitstream, blocks, container, delta
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 
 def _payload(kind, n, seed=0):
     rng = np.random.default_rng(seed)

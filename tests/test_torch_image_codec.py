@@ -15,6 +15,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import metalhuffman_tpu
 import metalhuffman_tpu_torch
@@ -26,6 +27,9 @@ from metalhuffman_tpu_torch.models import frame_stream as tfs
 from metalhuffman_tpu_torch.models import image_codec as tic
 from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.models.image_codec import ImageCodec
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 MODES = {
     "delta": {},

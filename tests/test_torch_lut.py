@@ -30,6 +30,9 @@ from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.ops import decode_cuda
 from metalhuffman_tpu_torch.utils import fixtures
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 WINDOWS = np.arange(1 << 16, dtype=np.int64)
 

@@ -25,6 +25,9 @@ from metalhuffman_tpu_torch.models import frame_stream as tfs
 from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.ops import decode_cuda
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 NATIVE = JaxConfig(backend="native")
 CONFIGS = {
     "none": {"delta": False},

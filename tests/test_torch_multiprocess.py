@@ -24,6 +24,10 @@ import time
 
 import numpy as np
 import pytest
+import torch
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120  # seconds for all ranks of one test

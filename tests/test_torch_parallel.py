@@ -31,6 +31,9 @@ from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
 from metalhuffman_tpu_torch.parallel import mesh, multihost, shard_decode, shard_encode
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 WORLDS = [1, 2, 3, 4, 8]
 ENCODE_CASES = [(3000, 0), (8 * 1024, 0), (9 * 1024 + 123, 37)]
 

@@ -31,6 +31,9 @@ from metalhuffman_tpu_torch.ops import decode_cuda
 from metalhuffman_tpu_torch.probes import ablate_decode, int16_rate, strips
 from metalhuffman_tpu_torch.utils import fixtures
 
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))  # the scratch scripts import bench
 

@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import metalhuffman_tpu
 import metalhuffman_tpu_torch
@@ -27,6 +28,9 @@ from metalhuffman_tpu.models import frame_stream as jfs
 from metalhuffman_tpu_torch import native
 from metalhuffman_tpu_torch.models import frame_stream as tfs
 from metalhuffman_tpu_torch.models.config import CodecConfig
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = {

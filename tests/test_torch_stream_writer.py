@@ -14,6 +14,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from metalhuffman_tpu.models import CodecConfig as JaxConfig
 from metalhuffman_tpu.models import stream_writer as jsw
@@ -22,6 +23,9 @@ from metalhuffman_tpu_torch.core import blocks
 from metalhuffman_tpu_torch.models import color, frame_stream, temporal
 from metalhuffman_tpu_torch.models import stream_writer as tsw
 from metalhuffman_tpu_torch.models.config import CodecConfig
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 T, H, W = 7, 24, 40
 CHUNKS = {"1": 1, "3": 3, "all": T}

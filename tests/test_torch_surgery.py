@@ -17,6 +17,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from metalhuffman_tpu.models import surgery as jsu
 from metalhuffman_tpu_torch import decode_video, encode_video
@@ -25,6 +26,9 @@ from metalhuffman_tpu_torch.models import surgery as tsu
 from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.models.stream_writer import (
     StreamingEncoder, TemporalStreamingEncoder)
+
+# xdist runs a worker per core: one torch thread each, or they oversubscribe
+torch.set_num_threads(1)
 
 T, H, W = 11, 24, 40
 
