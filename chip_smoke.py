@@ -178,7 +178,7 @@ Phases (any failure exits nonzero and prints no result):
    fold apart, with CUDA events), each surgery call; one ``phase K`` JSON
    line holds them with the launches.
    Every kernel's launch count is set to 0 just before phases B, C, D, E,
-   F, G, H, I, J, K and M and must match the decodes, encodes and probes
+   F, G, H, I, J, K, M and N and must match the decodes, encodes and probes
    each made.
 13. Phase L, the benchmark's entry: ``bench_torch.py -v --device cuda:0``
    as a process of its own at its defaults (30x2048x1536, 25 calls a
@@ -211,7 +211,25 @@ Phases (any failure exits nonzero and prints no result):
    B1's queued calls with CUDA events, as GB/s and the factor between them,
    with the CPU model, ``os.cpu_count()``, the decode's thread count and the
    card. One ``phase M`` JSON line holds them with the launches.
-15. Times, with CUDA events over distinct staged inputs: B1 with and without
+15. Phase N, the block sizes the containers record beyond 2, 4, 8 and 16
+   (1x1 to 255x255; B2 decodes a block's last 1-3 symbols as a short
+   group). B2 against its plain version, bytes and end bits (tolerance 0),
+   and the blocks against the source: one synthetic 2048x1536 frame at
+   block sizes 1, 3, 5, 6, 12 and 32 with 1-D delta and none, at 12 and 32
+   with delta2d through the torch post-pass, and a 510x255 frame of two
+   255x255 blocks (the plain version loops once per 4 symbols). Then the
+   user path at full size: the 30x2048x1536 synthetic and panned photo
+   frames through ``encode_video`` at 3x3, 12x12 (with per-frame CRCs) and
+   32x32, each decoded by ``decode_video`` on the card and on ``native``,
+   both equal to the frames; ``decode_range`` 5-13 of the 12x12 photo
+   video, checked against its per-frame CRCs; ``decode_image`` of the photo
+   at 3x3 and 32x32 and a checked 512x512 ``decode_region`` at each. Then
+   B2 alone on the synthetic batch at 3x3, 12x12 and 32x32, held to its
+   plain version there first: its grid, the median of 12 single calls and
+   the mean of 12 queued calls with CUDA events, its plain version's
+   median of 3, and the byte bound. One ``phase N`` JSON line holds them
+   with the card, the launches and the host-clock decode times.
+16. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -239,8 +257,8 @@ Phases (any failure exits nonzero and prints no result):
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I``,
-``phase J``, ``phase K``, ``phase L`` and ``phase M`` lines come before
-them.
+``phase J``, ``phase K``, ``phase L``, ``phase M`` and ``phase N`` lines
+come before them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -524,9 +542,11 @@ def phase_a_end_bits(device) -> int:
     return err
 
 
-def phase_a_blocks(device) -> int:
-    """B2 against its plain version on one synthetic 2048x1536 frame at every
-    block size; returns the max absolute byte or end-bit difference."""
+def b2_case(device, phase: str, frame: np.ndarray, bd: int, kw: dict) -> int:
+    """B2 against its plain version on one frame at block size ``bd`` under
+    config ``kw``, bytes and end bits (tolerance 0), the end bits on their
+    targets and the blocks equal to the frame (delta2d off 8x8 through the
+    torch post-pass); returns the max absolute difference."""
     import torch
 
     from metalhuffman_tpu_torch.core import blocks, delta as delta_mod
@@ -534,41 +554,46 @@ def phase_a_blocks(device) -> int:
     from metalhuffman_tpu_torch.models.config import CodecConfig
     from metalhuffman_tpu_torch.ops import decode_cuda
 
+    h, w = frame.shape
+    cfg = CodecConfig(block_dim=bd, **kw)
+    name = f"B2 {bd}x{bd} " + ("delta2d" if cfg.delta2d else
+                               "delta" if cfg.delta else "none")
+    stream = fs.encode_frames_shared(frame[None], cfg)
+    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    args = (torch.from_numpy(words).to(device),
+            torch.from_numpy(offsets).to(device),
+            torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj)
+    in_kernel_d2 = cfg.delta2d and bd == 8
+    geo = dict(num_steps=bd * bd, delta=cfg.delta and not cfg.delta2d,
+               delta2d=in_kernel_d2, emit_end=True)
+    out, end = decode_cuda.decode_blocks(
+        *args, **geo, table=decode_cuda.lookup_table(meta, device))
+    pout, pend = decode_cuda.decode_blocks_plain(*args, **geo)
+    err = max(int((out.int() - pout.int()).abs().max()),
+              int((end - pend).abs().max()))
+    check(err == 0, f"{phase} {name}: kernel differs from plain by {err}")
+    targets = torch.from_numpy(
+        decode_cuda.block_end_targets(stream.block_offsets, None))
+    check(not decode_cuda.check_block_ends(end.cpu(), targets).any(),
+          f"{phase} {name}: end bits miss their targets")
+    if cfg.delta2d and not in_kernel_d2:
+        out = delta_mod.delta2d_decode_blocks(out, bd)
+    got = blocks.blocks_to_image_torch(out, h, w, bd)
+    check(np.array_equal(got.cpu().numpy(), frame),
+          f"{phase} {name}: the blocks differ from the source frame")
+    print(f"{phase} ok: {name} {w}x{h}: kernel == plain == source, "
+          f"{end.numel()} end bits on target")
+    return err
+
+
+def phase_a_blocks(device) -> int:
+    """B2 against its plain version on one synthetic 2048x1536 frame at the
+    block sizes 2, 4, 8 and 16; returns the max absolute byte or end-bit
+    difference."""
     frame = synthetic_frame(FULL[1], FULL[2])
     cases = [(bd, {"delta": d}) for bd in (2, 4, 8, 16) for d in (True, False)]
     cases += [(8, {"delta2d": True}), (16, {"delta2d": True})]
-    worst = 0
-    for bd, kw in cases:
-        cfg = CodecConfig(block_dim=bd, **kw)
-        name = f"B2 {bd}x{bd} " + ("delta2d" if cfg.delta2d else
-                                   "delta" if cfg.delta else "none")
-        stream = fs.encode_frames_shared(frame[None], cfg)
-        meta, words, offsets = decode_cuda.prepare_stream(stream)
-        args = (torch.from_numpy(words).to(device),
-                torch.from_numpy(offsets).to(device),
-                torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj)
-        in_kernel_d2 = cfg.delta2d and bd == 8
-        geo = dict(num_steps=bd * bd, delta=cfg.delta and not cfg.delta2d,
-                   delta2d=in_kernel_d2, emit_end=True)
-        out, end = decode_cuda.decode_blocks(
-            *args, **geo, table=decode_cuda.lookup_table(meta, device))
-        pout, pend = decode_cuda.decode_blocks_plain(*args, **geo)
-        err = max(int((out.int() - pout.int()).abs().max()),
-                  int((end - pend).abs().max()))
-        worst = max(worst, err)
-        check(err == 0, f"phase A {name}: kernel differs from plain by {err}")
-        targets = torch.from_numpy(
-            decode_cuda.block_end_targets(stream.block_offsets, None))
-        check(not decode_cuda.check_block_ends(end.cpu(), targets).any(),
-              f"phase A {name}: end bits miss their targets")
-        if cfg.delta2d and not in_kernel_d2:
-            out = delta_mod.delta2d_decode_blocks(out, bd)
-        got = blocks.blocks_to_image_torch(out, FULL[1], FULL[2], bd)
-        check(np.array_equal(got.cpu().numpy(), frame),
-              f"phase A {name}: the blocks differ from the source frame")
-        print(f"phase A ok: {name} 2048x1536: kernel == plain == source, "
-              f"{end.numel()} end bits on target")
-    return worst
+    return max(b2_case(device, "phase A", frame, bd, kw) for bd, kw in cases)
 
 
 def table_cases() -> list:
@@ -3232,9 +3257,143 @@ def phase_m(device, card: str, f_ctx: dict) -> tuple[dict, dict]:
     return counts, {"card": card, **host, **numbers, "s": times}
 
 
+N_DIMS = (1, 3, 5, 6, 12, 32)  #: phase N: B2 against its plain version
+N_DELTA2D = (12, 32)  #: phase N: delta2d through the torch post-pass
+N_WIDE = (255, 510)  #: phase N: a frame of two 255x255 blocks, 1-D delta
+N_VIDEO = (3, 12, 32)  #: phase N: the 30x2048x1536 videos and B2's times
+N_IMAGE = (3, 32)  #: phase N: decode_image and a checked region of the photo
+N_FCRC = 12  #: phase N: the block size whose videos record per-frame CRCs
+N_RANGE = (5, 13)  #: phase N: frames of the FCRC video's decode_range
+N_REGION = (512, 768, 512, 512)  #: (y0, x0, rh, rw) of phase N's region
+N_PLAIN_ITERS = 3  #: phase N: timed calls of B2's plain version
+
+
+def phase_n(device, card: str) -> tuple[dict, int, dict]:
+    """Block sizes off 2/4/8/16 (see the module docstring): B2 against its
+    plain version, then the user path at full size, then B2's times ->
+    (the launches each kernel made on the user path, after checking them;
+    B2's max absolute difference from its plain version; the phase's
+    numbers for its ``phase N`` line)."""
+    import metalhuffman_tpu_torch as mt
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models.config import CodecConfig
+    from metalhuffman_tpu_torch.models.image_codec import ImageCodec
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    t_phase = time.perf_counter()
+    t, h, w = FULL
+    frame = synthetic_frame(h, w)
+    cases = [(bd, {"delta": d}) for bd in N_DIMS for d in (True, False)]
+    cases += [(bd, {"delta2d": True}) for bd in N_DELTA2D]
+    worst = max(b2_case(device, "phase N", frame, bd, kw) for bd, kw in cases)
+    worst = max(worst, b2_case(device, "phase N", synthetic_frame(*N_WIDE),
+                               255, {"delta": True}))
+    t_check = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    contents = {"synthetic": synthetic(t, h, w),
+                "photo": photo_frames(h, w, t)}
+    blobs = {(bd, name): mt.encode_video(frames, CodecConfig(
+        block_dim=bd, frame_crcs=bd == N_FCRC))
+        for bd in N_VIDEO for name, frames in contents.items()}
+    img = photo()
+    mht1 = {bd: mt.encode_image(img, CodecConfig(block_dim=bd))
+            for bd in N_IMAGE}
+    t_encode = time.perf_counter() - t0
+    print(f"phase N inputs encoded in {t_encode:.2f} s")
+
+    size = f"{t}x{w}x{h}"
+    expected = expect()
+    times = {}
+    reset_launches()
+    for (bd, name), blob in blobs.items():
+        frames = contents[name]
+        t0 = time.perf_counter()
+        got = mt.decode_video(blob, device)
+        dc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat = mt.decode_video(blob, native.NATIVE)
+        dn = time.perf_counter() - t0
+        expected["decode_blocks"] += 1
+        label = f"decode_video {name} {size} {bd}x{bd}"
+        check(np.array_equal(got, frames),
+              f"phase N {label}: the frames differ from the source")
+        check(np.array_equal(nat, got),
+              f"phase N {label}: the card's frames differ from native's")
+        times[label] = {"card_s": dc, "native_s": dn, "bytes": len(blob)}
+        print(f"phase N ok: {label} ({len(blob)} B, "
+              f"{len(blob) / frames.size:.4f}) == source == native "
+              f"({dc:.3f} s card, {dn:.3f} s native, host clock)")
+    a, b = N_RANGE
+    got = fs.decode_range(blobs[N_FCRC, "photo"], a, b, device=device)[0]
+    expected["decode_blocks"] += 1
+    check(np.array_equal(got, contents["photo"][a:b]),
+          f"phase N decode_range {a}-{b}: the frames differ from the source")
+    print(f"phase N ok: decode_range {a}-{b} of the photo MHTV at "
+          f"{N_FCRC}x{N_FCRC}, checked against its per-frame CRCs")
+    y0, x0, rh, rw = N_REGION
+    for bd, blob in mht1.items():
+        check(np.array_equal(mt.decode_image(blob, device), img),
+              f"phase N decode_image {bd}x{bd}: the image differs")
+        cfg = CodecConfig(block_dim=bd)
+        region = ImageCodec(cfg).decode_region(
+            ImageCodec(cfg).encode(img), h, w, y0, x0, rh, rw, check=True,
+            device=device)
+        expected["decode_blocks"] += 2
+        check(np.array_equal(region, img[y0:y0 + rh, x0:x0 + rw]),
+              f"phase N decode_region {bd}x{bd}: the crop differs")
+        print(f"phase N ok: decode_image photo {bd}x{bd} ({len(blob)} B) "
+              f"CRC-checked and a checked {rh}x{rw} decode_region, equal")
+    counts = read_launches()
+    check(counts == expected,
+          f"phase N: kernel launches {counts}, expected {expected}")
+    print(f"phase N launches: {counts}")
+    del contents, mht1
+
+    # B2 alone on the synthetic batch at each size, with CUDA events
+    numbers = {}
+    for bd in N_VIDEO:
+        cfg = CodecConfig(block_dim=bd)
+        prep = fs.prepare_shared(fs.read_shared(blobs[bd, "synthetic"])[0],
+                                 t, h, w, cfg, device=device)
+        geo = dict(num_steps=bd * bd, delta=True)
+        args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+
+        def b2(p, geo=geo, args=args):
+            return decode_cuda.decode_blocks(*args, **geo, table=p.table)
+
+        def b2_plain(_p, geo=geo, args=args):
+            return decode_cuda.decode_blocks_plain(*args, **geo)
+
+        err = int((b2(prep).int() - b2_plain(prep).int()).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"phase N timed B2 {bd}x{bd}: kernel differs from "
+              f"plain by {err}")
+        nb = prep.offsets.numel()
+        nbytes = nb * bd * bd
+        label = f"N B2 {bd}x{bd} {size}"
+        shape = report_shape(label, "decode_blocks", prep, num_steps=bd * bd)
+        ms = timed(f"{label} kernel", b2, [prep], card, nbytes)
+        queued = back_to_back(f"{label} kernel", b2, [prep], card, nbytes)
+        plain_ms = timed(f"{label} plain", b2_plain, [prep], card, nbytes,
+                         iters=N_PLAIN_ITERS)
+        bms, by = bound(label, prep, nbytes)
+        numbers[f"{bd}x{bd}"] = {
+            "blocks": nb, "ms": ms, "queued_ms": queued, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "ctas_per_sm": shape["ctas_per_sm"],
+            "grid": shape["grid"], "registers": shape["registers"]}
+        del prep
+    total = time.perf_counter() - t_phase
+    print(f"phase N: {total:.1f} s in all ({t_check:.1f} s B2 against its "
+          f"plain version, {t_encode:.1f} s host encode)")
+    return counts, worst, {"card": card, "launches": counts, "b2": numbers,
+                           "s": times, "phase_s": total}
+
+
 def timed(label: str, fn, inputs, card: str, nbytes: int,
-          unit: str = "decoded") -> float:
-    """Median ms of ``fn`` over TIMED_ITERS calls cycling over ``inputs``,
+          unit: str = "decoded", iters: int = TIMED_ITERS) -> float:
+    """Median ms of ``fn`` over ``iters`` calls cycling over ``inputs``,
     with CUDA events; prints it, as ``nbytes`` per call in GB/s ``unit``,
     beside the card."""
     import torch
@@ -3243,7 +3402,7 @@ def timed(label: str, fn, inputs, card: str, nbytes: int,
         fn(x)
     torch.cuda.synchronize()
     times = []
-    for i in range(TIMED_ITERS):
+    for i in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3333,9 +3492,9 @@ def back_to_back(label: str, fn, inputs, card: str, nbytes: int) -> float:
     return mean
 
 
-def report_shape(label: str, name: str, prep, num_steps: int = 64) -> None:
+def report_shape(label: str, name: str, prep, num_steps: int = 64) -> dict:
     """Print the grid of kernel ``name`` on a staged batch (1-D delta) and
-    what ptxas gave the kernel."""
+    what ptxas gave the kernel; return them (``decode_cuda.launch_shape``)."""
     from metalhuffman_tpu_torch.ops import decode_cuda
 
     nb = prep.offsets.numel()
@@ -3349,6 +3508,7 @@ def report_shape(label: str, name: str, prep, num_steps: int = 64) -> None:
           f"{s['registers']} registers, {s['local_bytes']} B local "
           f"(spills) per thread; {nb / threads:.3f} blocks per thread, the "
           f"busiest {-(-nb // threads)}")
+    return s
 
 
 def timings(device, card: str) -> dict:
@@ -4077,6 +4237,9 @@ def main(argv: list[str]) -> int:
     m_counts, m_numbers = phase_m(device, card, f_ctx)
     for name, count in m_counts.items():
         launches[name] += count
+    n_counts, n_err, n_numbers = phase_n(device, card)
+    for name, count in n_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -4089,7 +4252,7 @@ def main(argv: list[str]) -> int:
     max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"],
                   h_errs["decode_images"], k_errs["decode_images"])
     b2_err = max(b2_err, f_errs["decode_blocks"], g_errs["decode_blocks"],
-                 h_errs["decode_blocks"], k_errs["decode_blocks"])
+                 h_errs["decode_blocks"], k_errs["decode_blocks"], n_err)
     errs.update(decode_images=max_err, decode_blocks=b2_err,
                 encode_stream=max(stream_err, h_errs["encode_stream"]),
                 encode_rows=max(b3_err, h_errs["encode_rows"]))
@@ -4108,6 +4271,7 @@ def main(argv: list[str]) -> int:
     print("phase L " + json.dumps({"card": card, "launches": l_counts,
                                    **l_runs}))
     print("phase M " + json.dumps({"launches": m_counts, **m_numbers}))
+    print("phase N " + json.dumps(n_numbers))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

@@ -7,8 +7,8 @@ hand-written CUDA kernels for Hopper (``csrc/``, built with nvcc at first
 use). It imports no JAX and nothing of the JAX package.
 
 - ``ops.decode_cuda``: the decode kernels (8x8 images, packed blocks of
-  2/4/8/16), their plain PyTorch versions, the stream staging and the
-  end-bit integrity check.
+  any size from 1x1 to 255x255), their plain PyTorch versions, the stream
+  staging and the end-bit integrity check.
 - ``ops.encode_cuda``: the hybrid device encoder
   (``encode_symbols_hybrid``): the row-packing kernel for 8x8 blocks, its
   plain PyTorch version, and the host row merge and tail.

@@ -11,7 +11,10 @@
 //   (ops/decode_cuda.py::lookup_entries), staged once per CUDA block by
 //   stage_lut. Its symbol loop, decode_window_lut, is apart from the refill
 //   so that the probes of B1 (decode_strips.cu, ablate_decode.cu's b1
-//   family) can feed it windows read another way;
+//   family) can feed it windows read another way. decode_tail_lut is the
+//   same step over a block's last 1-3 symbols, where the block's size is no
+//   multiple of 4 (decode_blocks.cu only: the TPU kernel refuses such sizes,
+//   the JAX package's XLA decode takes them);
 // - decode_group, the canonical-interval arithmetic the TPU kernel runs (15
 //   compares per symbol): the plain versions' arithmetic, and the body of
 //   ablate_decode.cu's first five variants, which keep the record of B1
@@ -58,11 +61,13 @@ __device__ __forceinline__ void stage_table(const IntervalTable& tab,
 // The 64-bit window of the big-endian word stream left-justified at absolute
 // bit `pos`: enough for 4 symbols of up to 16 bits.
 //
-// It reads words pos>>5 .. (pos>>5)+2. The caller pads the stream so a
-// well-formed block never needs more (each of a group's symbols takes at
-// least one bit, so the last group of any block, of any size, starts at or
-// before total_bits - 4); the clamp to last_word = n_words - 3 keeps a
-// malformed offset or a desynchronised corrupt stream inside the buffer.
+// It reads words pos>>5 .. (pos>>5)+2. The caller pads the stream with two
+// words so a well-formed block never needs more: every symbol takes at least
+// one bit, so any group, a block's short last group of 1-3 symbols included,
+// starts at or before total_bits - 1, inside the unpadded stream's last word,
+// and reads at most the two pad words past it. The clamp to last_word =
+// n_words - 3 keeps a malformed offset or a desynchronised corrupt stream
+// inside the buffer.
 __device__ __forceinline__ uint64_t refill(const uint32_t* __restrict__ words,
                                            uint64_t last_word, uint64_t pos) {
   uint64_t wi = pos >> 5;
@@ -217,22 +222,23 @@ __device__ __forceinline__ void stage_lut(const int16_t* __restrict__ src,
   }
 }
 
-// Decode 4 symbols from `win`, the 64-bit window left-justified at their
-// first bit, through the lookup table: T1 in shared memory (s_t1), T2 in
-// shared memory (T2_SMEM) or global memory read through L1. Returns the bits
-// they took; `packed` gets them little-endian (symbol k in byte k), with
-// DELTA the running sum `prev` of the 1-D delta, carried across calls. The
-// entries are read as signed 16-bit values, so the escape bit is the sign
-// and its test one compare (the unsigned test took an extra instruction per
-// symbol in ptxas's code).
-template <bool T2_SMEM, bool DELTA>
+// Decode N (4, or 1-3 for a block's last group) symbols from `win`, the
+// 64-bit window left-justified at their first bit, through the lookup table:
+// T1 in shared memory (s_t1), T2 in shared memory (T2_SMEM) or global memory
+// read through L1. Returns the bits they took; `packed` gets them
+// little-endian (symbol k in byte k, the bytes past N zero), with DELTA the
+// running sum `prev` of the 1-D delta, carried across calls. The entries are
+// read as signed 16-bit values, so the escape bit is the sign and its test
+// one compare (the unsigned test took an extra instruction per symbol in
+// ptxas's code).
+template <bool T2_SMEM, bool DELTA, int N = 4>
 __device__ __forceinline__ uint32_t decode_window_lut(
     uint64_t win, const int16_t* s_t1, const int16_t* __restrict__ t2,
     uint32_t& prev, uint32_t& packed) {
   uint32_t t = 0;  // bits consumed in this group, <= 48 before symbol 3
   uint32_t out = 0;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < N; ++k) {
     const uint32_t window = (uint32_t)((win << t) >> 48);
     int32_t e = s_t1[window >> kK2];
     if (e < 0) {  // kEscape | secondary table
@@ -252,15 +258,38 @@ __device__ __forceinline__ uint32_t decode_window_lut(
   return t;
 }
 
-// Decode the 4 symbols that start at absolute bit `pos`, as decode_group does,
-// through the lookup table: the refill and decode_window_lut.
-template <bool T2_SMEM, bool DELTA>
+// Decode the N (default 4) symbols that start at absolute bit `pos`, as
+// decode_group does, through the lookup table: the refill and
+// decode_window_lut.
+template <bool T2_SMEM, bool DELTA, int N = 4>
 __device__ __forceinline__ uint32_t decode_group_lut(
     const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
     const int16_t* s_t1, const int16_t* __restrict__ t2, uint32_t& prev,
     uint32_t& packed) {
-  return decode_window_lut<T2_SMEM, DELTA>(refill(words, last_word, pos),
-                                           s_t1, t2, prev, packed);
+  return decode_window_lut<T2_SMEM, DELTA, N>(refill(words, last_word, pos),
+                                              s_t1, t2, prev, packed);
+}
+
+// A block's last group when its size is no multiple of 4: decode_group_lut
+// over just its r = 1, 2 or 3 symbols, so `pos` advances by their widths
+// alone, `prev` carries through them alone and the end bit is the block's
+// own. (Decoding 4 and dropping the rest would add the width of a symbol
+// past the block.) r is warp-uniform: every lane's block has one size.
+template <bool T2_SMEM, bool DELTA>
+__device__ __forceinline__ uint32_t decode_tail_lut(
+    const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
+    const int16_t* s_t1, const int16_t* __restrict__ t2, int r,
+    uint32_t& prev, uint32_t& packed) {
+  if (r == 1) {
+    return decode_group_lut<T2_SMEM, DELTA, 1>(words, last_word, pos, s_t1,
+                                               t2, prev, packed);
+  }
+  if (r == 2) {
+    return decode_group_lut<T2_SMEM, DELTA, 2>(words, last_word, pos, s_t1,
+                                               t2, prev, packed);
+  }
+  return decode_group_lut<T2_SMEM, DELTA, 3>(words, last_word, pos, s_t1, t2,
+                                             prev, packed);
 }
 
 // ---- launches ------------------------------------------------------------------

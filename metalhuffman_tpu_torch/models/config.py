@@ -3,10 +3,11 @@ that the port reads, with the same names and defaults."""
 
 from __future__ import annotations
 
+import numbers
 from dataclasses import dataclass
 
-#: square block sizes the decode kernels take (a multiple of 4 symbols each)
-BLOCK_DIMS = (2, 4, 8, 16)
+#: the largest block_dim: every container records it in one byte
+MAX_BLOCK_DIM = 255
 
 
 @dataclass(frozen=True)
@@ -14,7 +15,7 @@ class CodecConfig:
     """Block geometry and precoder of a stream (reference: the compile-time
     ``#define`` switches of ``AAPLShaderTypes.h:109-123``)."""
 
-    block_dim: int = 8  # HUFF_BLOCK_DIM: 2, 4, 8 or 16
+    block_dim: int = 8  # HUFF_BLOCK_DIM: 1 .. MAX_BLOCK_DIM
     delta: bool = True  # per-block 1-D delta precoding
     #: each block's root byte ships uncoded in a side array and its stream
     #: slot becomes a zero delta (requires delta=True)
@@ -36,11 +37,13 @@ class CodecConfig:
     motion: bool = False
 
     def __post_init__(self):
-        # the kernels decode 4 symbols per refill, as the TPU kernel does
-        # (decode_pallas.py:431-435 refuses num_steps % 4)
-        if self.block_dim not in BLOCK_DIMS:
-            raise ValueError(
-                f"block_dim {self.block_dim} is not one of {BLOCK_DIMS}")
+        # any size the containers' header byte can record: the kernels
+        # decode a block's last 1-3 symbols as a short group
+        bd = self.block_dim
+        if (isinstance(bd, bool) or not isinstance(bd, numbers.Integral)
+                or not 1 <= bd <= MAX_BLOCK_DIM):
+            raise ValueError(f"block_dim {bd!r} is not an integer in "
+                             f"[1, {MAX_BLOCK_DIM}]")
 
     @property
     def block_size(self) -> int:

@@ -6,8 +6,8 @@ package's), so both packages produce and consume the very same
 ``EncodedStream`` and containers; decode stages a stream as tensors on an
 explicit device and decodes all its frames in one launch:
 :func:`..ops.decode_cuda.decode_images` for 8x8 blocks,
-:func:`..ops.decode_cuda.decode_blocks` and a torch relayout for 2x2, 4x4 and
-16x16.
+:func:`..ops.decode_cuda.decode_blocks` and a torch relayout for every other
+block size a container records, 1x1 to 255x255.
 
 - MHTV: one shared-table stream (``write_shared``, ``read_shared``), with the
   source CRC-32 trailer and the optional per-frame CRC table (FCRC).

@@ -12,8 +12,10 @@ padding) has no counterpart here:
   ``b // (bh*bw)``, block row ``(b % (bh*bw)) // bw``, block column
   ``b % bw``.
 - :func:`decode_blocks` (``csrc/decode_blocks.cu``, TPU kernel
-  ``decode_tiles``): blocks of any ``num_steps % 4 == 0`` symbols, an
-  ``(nb, num_steps)`` uint8 tensor in the order of the offset index.
+  ``decode_tiles``): blocks of 1 to ``MAX_STEPS`` symbols (square blocks of
+  1x1 to 255x255, any size a container records; the TPU kernel takes
+  multiples of 4, the JAX package's XLA decode any size), an ``(nb,
+  num_steps)`` uint8 tensor in the order of the offset index.
 
 Both can also return each block's row-local end bit, ``(offset & 31)`` plus
 the bits it consumed (the TPU kernel's ``emit_end`` carry), which
@@ -45,6 +47,9 @@ from ..core import bitstream
 
 #: zero u32 words appended after the stream (see :func:`prepare_stream`)
 PAD_WORDS = 2
+#: the most symbols a packed block holds: 255x255, the largest block_dim a
+#: container's header byte records
+MAX_STEPS = 255 * 255
 _M32 = 0xFFFFFFFF
 
 #: the split of the 16-bit window (``csrc/decode_common.cuh::kK1``): T1
@@ -203,10 +208,11 @@ def prepare_stream(stream):
     device.
 
     Two pad words are enough, at any block size: a well-formed block's
-    last 4-symbol group starts at a bit ``p <= total_bits - 4`` (each of its
-    symbols takes at least one bit) and reads words ``p>>5 .. (p>>5)+2``,
-    while the unpadded stream already holds ``ceil(total_bits/32) >=
-    ((total_bits-4)>>5) + 1`` words. The kernels clamp the refill index to
+    last group, of 4 symbols or of a block's last 1-3, starts at a bit ``p
+    <= total_bits - 1`` (each of its symbols takes at least one bit) and
+    reads words ``p>>5 .. (p>>5)+2``, while the unpadded stream already
+    holds ``ceil(total_bits/32) >= ((total_bits-1)>>5) + 1`` words. The
+    kernels clamp the refill index to
     ``n_words - 3`` besides, so a malformed offset index cannot read past
     the buffer.
     """
@@ -259,6 +265,9 @@ def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
 
     All arithmetic is int64 with explicit 32-bit masks, because ``>>`` on a
     signed int32 tensor is arithmetic while the decode needs logical shifts.
+    Symbols are decoded 4 to a window, as the kernels do, and a block whose
+    ``num_steps % 4`` is 1-3 ends with a group of just those symbols, so the
+    end bit counts exactly the block's own symbols.
     """
     dev = words.device
     nb = offsets.numel()
@@ -270,7 +279,7 @@ def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
     adj_t = torch.tensor(adj, dtype=torch.int64, device=dev)
     syms = symbols.to(torch.int64)
     out = torch.empty((nb, num_steps), dtype=torch.int64, device=dev)
-    for g in range(num_steps // 4):
+    for g in range(0, num_steps, 4):
         wi = torch.clamp(pos >> 5, max=last)
         s = pos & 31
         w0, w1, w2 = w64[wi], w64[wi + 1], w64[wi + 2]
@@ -279,14 +288,14 @@ def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
         hi0 = ((w0 << s) | ((w1 >> 1) >> (31 - s))) & _M32
         hi1 = ((w1 << s) | ((w2 >> 1) >> (31 - s))) & _M32
         t = torch.zeros_like(pos)
-        for k in range(4):
+        for k in range(min(4, num_steps - g)):
             top = torch.where(t < 32, hi0, hi1)
             u = t & 31
             win32 = ((top << u) | ((hi1 >> 1) >> (31 - u))) & _M32
             window = win32 >> 16
             w = 1 + (window[:, None] >= b_tab).sum(1)
             idx = adj_t[w - 1] + (window >> (16 - w))
-            out[:, 4 * g + k] = syms[idx & 255]
+            out[:, g + k] = syms[idx & 255]
             t = t + w
         pos = pos + t
     if mode == 1:
@@ -313,10 +322,9 @@ def decode_images_plain(words: torch.Tensor, offsets: torch.Tensor,
 
 
 def _check_steps(num_steps: int, delta2d: bool) -> None:
-    if num_steps % 4 or not 4 <= num_steps <= 256:
-        raise ValueError(
-            f"num_steps ({num_steps}) must be a multiple of 4 in [4, 256] "
-            "(blocks of 2, 4, 8 or 16)")
+    if not 1 <= num_steps <= MAX_STEPS:
+        raise ValueError(f"num_steps ({num_steps}) must be in [1, {MAX_STEPS}]"
+                         " (blocks of 1x1 to 255x255)")
     if delta2d and num_steps != 64:
         raise ValueError("in-kernel delta2d needs 8x8 blocks (num_steps 64); "
                          "other sizes fold it after the decode")
@@ -480,6 +488,13 @@ def decode_images(words: torch.Tensor, offsets: torch.Tensor,
     return (out, end) if emit_end else out
 
 
+def store_bytes(num_steps: int) -> int:
+    """The widest store the packed-block kernel makes into its output, so
+    the alignment its ``out`` needs: 16 bytes where a block is a multiple of
+    16 symbols, 4 where of 4, else single bytes (a row starts at any byte)."""
+    return 16 if num_steps % 16 == 0 else 4 if num_steps % 4 == 0 else 1
+
+
 def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
                   symbols: torch.Tensor, bounds, adj, *, num_steps: int,
                   delta: bool, delta2d: bool = False, emit_end: bool = False,
@@ -498,8 +513,7 @@ def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
     _check_steps(num_steps, delta2d)
     nb = offsets.numel()
     kind = _check_inputs(words, offsets, symbols, bounds, adj, nb)
-    # 16-byte stores where a block is a multiple of 16 symbols, else 4-byte
-    _check_out(out, (nb, num_steps), words, 16 if num_steps % 16 == 0 else 4)
+    _check_out(out, (nb, num_steps), words, store_bytes(num_steps))
     if kind == "cpu":
         return _plain_into(out, decode_blocks_plain(
             words, offsets, symbols, bounds, adj, num_steps=num_steps,

@@ -244,13 +244,15 @@ def test_unported_containers_and_block_dims_raise():
     ours = metalhuffman_tpu_torch.decode_video(blob, "cpu")
     np.testing.assert_array_equal(ours, metalhuffman_tpu.decode_video(blob, jcfg))
     np.testing.assert_array_equal(ours, frames)
-    # the kernels take 4 symbols per refill: blocks of 2, 4, 8 or 16 only
-    # (the JAX package's XLA path also decodes odd sizes)
+    # every block size a container records decodes: a JAX blob at block_dim
+    # 3 (a last group of one symbol) gives the JAX package's frames
     for bd in (1, 3, 6, 32):
-        with pytest.raises(ValueError, match="block_dim"):
-            CodecConfig(block_dim=bd)
+        assert CodecConfig(block_dim=bd).block_size == bd * bd
     frames = _frames(1, 12, 12)
-    stream = jfs.encode_frames_shared(frames, _jax_cfg(block_dim=3))
-    blob = jfs.write_shared(stream, 1, 12, 12, _jax_cfg(block_dim=3))
-    with pytest.raises(ValueError, match="block_dim"):
-        metalhuffman_tpu_torch.decode_video(blob, "cpu")
+    jcfg3 = JaxConfig(backend="native", block_dim=3)
+    stream = jfs.encode_frames_shared(frames, jcfg3)
+    blob = jfs.write_shared(stream, 1, 12, 12, jcfg3)
+    ours = metalhuffman_tpu_torch.decode_video(blob, "cpu")
+    np.testing.assert_array_equal(ours, metalhuffman_tpu.decode_video(blob,
+                                                                      jcfg3))
+    np.testing.assert_array_equal(ours, frames)
