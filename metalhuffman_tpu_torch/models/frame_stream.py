@@ -51,6 +51,7 @@ from .. import native
 from ..core import blocks, container, delta as delta_mod
 from ..ops import decode_cuda
 from ..parallel import mesh as mesh_mod, shard_decode
+from ..utils.profiling import mark, span
 from .config import CodecConfig
 
 SHARED_MAGIC = b"MHTV"
@@ -777,7 +778,14 @@ def decode_range(data: bytes, a: int, b: int,
 def decode_range_parsed(parsed, a: int, b: int,
                         config: CodecConfig | None = None,
                         to_host: bool = True, *, device="cuda"):
-    """:func:`decode_range` on a :func:`parse_range_container` handle."""
+    """:func:`decode_range` on a :func:`parse_range_container` handle.
+
+    Under a profiler each decode marks ``range.stage``
+    (:func:`prepare_shared`) and ``range.decode`` (the launch and the crop),
+    then with ``to_host`` ``range.fetch`` (the wait on the device and the
+    copy to the host), and spans ``range.crc`` (the per-frame CRC-32 check,
+    host work alone): once a request, or once a frame in an MHTS
+    container."""
     kind, payload, fcrcs = parsed
     if kind == "stream":
         # one table per frame: a range is a loop of one-frame decodes, each
@@ -789,14 +797,18 @@ def decode_range_parsed(parsed, a: int, b: int,
         outs = []
         for i in range(a, b):
             scfg = _container_config(config, bd, delta, streams[i].predictor)
-            img = decode_frames_shared(streams[i], 1, h, w, scfg,
-                                       device=device)[0]
+            mark("range.stage")
+            prep = prepare_shared(streams[i], 1, h, w, scfg, device=device)
+            mark("range.decode")
+            img = decode_shared_step(prep, scfg)[0]
             if to_host:
+                mark("range.fetch")
                 img = img.cpu().numpy()
-                if fcrcs[i] and zlib.crc32(img.tobytes()) != fcrcs[i]:
-                    raise ValueError(
-                        f"decoded frame {i} fails its recorded CRC-32 — the "
-                        "stream is corrupt")
+                with span("range.crc"):
+                    if fcrcs[i] and zlib.crc32(img.tobytes()) != fcrcs[i]:
+                        raise ValueError(
+                            f"decoded frame {i} fails its recorded CRC-32 — "
+                            "the stream is corrupt")
             outs.append(img)
         return (np.stack(outs) if to_host else torch.stack(outs)), h, w
     segs, t, h, w, bd, delta = payload
@@ -808,14 +820,18 @@ def decode_range_parsed(parsed, a: int, b: int,
         lo, hi = max(a, base), min(b, base + ft)
         if lo < hi:
             view = frame_slice(stream, lo - base, hi - lo, h, w, cfg)
-            outs.append(decode_frames_shared(view, hi - lo, h, w, cfg,
-                                             device=device))
+            mark("range.stage")
+            prep = prepare_shared(view, hi - lo, h, w, cfg, device=device)
+            mark("range.decode")
+            outs.append(decode_shared_step(prep, cfg))
         base += ft
     frames = outs[0] if len(outs) == 1 else torch.cat(outs)
     if not to_host:
         return frames, h, w
+    mark("range.fetch")
     frames = frames.cpu().numpy()
-    verify_frame_crcs(frames, fcrcs, base=a)
+    with span("range.crc"):
+        verify_frame_crcs(frames, fcrcs, base=a)
     return frames, h, w
 
 

@@ -47,6 +47,7 @@ import torch
 
 from .. import native
 from ..core import blocks
+from ..utils.profiling import mark
 from . import color, frame_stream
 from .config import CodecConfig
 
@@ -771,7 +772,9 @@ def fold_planes(planes: torch.Tensor, keyint: int, mvs, first_len,
     on the tensor's device: the plane fold for an MHTC inner (``cinfo`` =
     (channels, kind, colorspace), else None), then the group or the
     motion-compensated fold. ``planes`` is used up when no plane fold
-    copies it (the folds work in place)."""
+    copies it (the folds work in place). Under a profiler the call starts
+    with the mark ``fold``."""
+    mark("fold")
     res = planes if cinfo is None else color.fold_video_planes_torch(
         planes, *cinfo)
     return _fold(res, keyint, mvs, first_len)

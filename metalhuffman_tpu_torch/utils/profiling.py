@@ -1,11 +1,13 @@
 """Timing and profiling helpers (counterpart of
 ``metalhuffman_tpu/utils/profiling.py``).
 
-:class:`Timer` is a copy (a wall-clock accumulator with GB/s accounting).
-:func:`time_fn` times a device function with CUDA events on a CUDA device,
-after synchronizing it, and with the host clock on the CPU, where the plain
-versions run synchronously. :func:`trace` captures a ``torch.profiler``
-trace (Chrome trace format) in place of ``jax.profiler``'s.
+:func:`span` names a stretch of the port's host work for a profiler that
+records, and :func:`mark` the start of a stretch that issues device work;
+each costs one check when no profiler records. :func:`time_fn` times a device
+function with CUDA events on a CUDA device, after synchronizing it, and with
+the host clock on the CPU, where the plain versions run synchronously.
+:func:`trace` captures a ``torch.profiler`` trace (Chrome trace format) in
+place of ``jax.profiler``'s.
 """
 
 from __future__ import annotations
@@ -13,52 +15,48 @@ from __future__ import annotations
 import contextlib
 import tempfile
 import time
-from dataclasses import dataclass, field
 from pathlib import Path
 
+import torch
 
-@dataclass
-class Timer:
-    """Accumulating wall-clock timer with GB/s accounting."""
+#: what :func:`span` returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+#: True while a profiler records: ``torch.profiler.profile`` and the
+#: autograd profiler's ``_enable_profiler`` both turn it on
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
-    name: str = "timer"
-    total_s: float = 0.0
-    count: int = 0
-    bytes_processed: int = 0
-    _t0: float = field(default=0.0, repr=False)
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
+def span(name: str):
+    """A ``torch.profiler.record_function`` named ``name`` while a profiler
+    records, else one shared null context: tracing has no switch of its own.
 
-    def __exit__(self, *exc):
-        self.total_s += time.perf_counter() - self._t0
-        self.count += 1
-        return False
+    Recorded spans sit on the profiler's clock with the device's activity
+    and nest on the host thread, so each finds its parent span. A span holds
+    host work alone: under CUDA activity the profiler also draws a span on
+    the card's timeline, from the first to the last device operation issued
+    while it is the innermost, and a reader of the card's busy time would
+    count that as work. Where a stretch issues device work, :func:`mark` its
+    start instead.
+    """
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
-    def add_bytes(self, n: int) -> None:
-        self.bytes_processed += n
 
-    @property
-    def mean_s(self) -> float:
-        return self.total_s / max(self.count, 1)
-
-    @property
-    def gbps(self) -> float:
-        return self.bytes_processed / max(self.total_s, 1e-12) / 1e9
-
-    def report(self) -> str:
-        s = f"{self.name}: {self.mean_s*1e3:.3f} ms/iter x{self.count}"
-        if self.bytes_processed:
-            s += f", {self.gbps:.3f} GB/s"
-        return s
+def mark(name: str) -> None:
+    """Record a span of no length named ``name`` while a profiler records:
+    the start of a stretch of the port's work that issues device
+    operations. The stretch runs to the port's next mark or span, or to the
+    end of the caller's span around it; nothing is drawn on the card's
+    timeline, as no device operation is issued inside the mark."""
+    if _profiler_enabled():
+        with torch.profiler.record_function(name):
+            pass
 
 
 def tensor_device(x):
     """The device of the first tensor in ``x`` (a tensor, or a tuple or list
     holding tensors), or None."""
-    import torch
-
     if isinstance(x, torch.Tensor):
         return x.device
     if isinstance(x, (tuple, list)):
@@ -73,8 +71,6 @@ def elapsed_s(device, fn) -> float:
     """Seconds ``fn()`` takes on ``device``: between two CUDA events on a
     CUDA device (the device synchronized first), on the host clock
     otherwise."""
-    import torch
-
     device = torch.device(device)
     if device.type != "cuda":
         t0 = time.perf_counter()
@@ -118,8 +114,6 @@ def trace(log_dir: str | Path | None = None):
     CUDA activity where the build supports it) and write it to
     ``log_dir/trace.json`` (Chrome trace format, viewable in Perfetto); a
     new temporary directory when ``log_dir`` is None."""
-    import torch
-
     log_dir = Path(log_dir or tempfile.mkdtemp(prefix="mht_trace_"))
     log_dir.mkdir(parents=True, exist_ok=True)
     prof = torch.profiler.profile(
