@@ -125,9 +125,10 @@ def run(args) -> tuple[float, int, float]:
 
 def launch_counts() -> dict:
     """The kernel wrappers' launches in this process, by kernel."""
-    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda, fold_cuda
 
-    return {**decode_cuda.launches, **encode_cuda.launches}
+    return {**decode_cuda.launches, **encode_cuda.launches,
+            **fold_cuda.launches}
 
 
 def main(argv=None) -> int:

@@ -8,7 +8,7 @@ the CUDA toolkit (nvcc) and g++:
 
 Phases (any failure exits nonzero and prints no result):
 
-1. Build the seven CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
+1. Build the eight CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source, in parallel) and the host C++
    codec (g++), and print the build time and ptxas's register, shared-memory
    and spill lines.
@@ -88,8 +88,14 @@ Phases (any failure exits nonzero and prints no result):
    chunks of 10 with its CRC chain, a checked 512x512 region, a flipped
    bit inside the region (raises) and outside (passes), and a wrapper with
    a changed keyint (raises). G6: F1's 150 frames as MHVT over an MHV2.
-   Then B1 against its plain version on G2's 768x1366 residuals and G3's
-   color planes, B2 on G1's region selection.
+   Every fold of a CUDA tensor is one launch of the fold kernel
+   (``temporal_fold``). Then G7: the fold kernel against its plain version
+   (``temporal.fold_plain``) on every case of the CPU tests (uint8, uint8 x
+   3, uint16; keyint 1, 3, 8, fewer frames than keyint, short first and
+   last groups; zero, negative and oversized vectors; spans split across
+   tables), each call one launch a table; B1 against its plain version on
+   G2's 768x1366 residuals and G3's color planes, B2 on G1's region
+   selection.
 9. Phase H, multi-GPU decode and encode (``metalhuffman_tpu_torch.parallel``)
    through a one-rank NCCL group on the card (the machine holds one GPU),
    at 30x2048x1536: ``decode_shared_sharded`` + ``gather_shared`` (B1),
@@ -250,10 +256,12 @@ Phases (any failure exits nonzero and prints no result):
    alone (host clock; staging, B1 and fetch apart), the host build of each
    of F3's lookup tables, and F3's MHTS decode (a launch per frame) against
    one MHTV launch of the same 30 frames; phase G's, for G1-G4: staging,
-   B1, the plane fold, the temporal fold (each fold beside its byte bound),
-   the fetch, the CRC and the whole ``decode_video`` call, the MHTV decode
-   of the same residuals as the yardstick, and the motion-compensated
-   folds' gather-rolls and adds apart.
+   B1, the plane fold, the fold kernel and its plain version (beside the
+   fold's byte bound), the fetch, the CRC and the whole ``decode_video``
+   call, the MHTV decode of the same residuals as the yardstick; then the
+   fold kernel at 30x2048x1536 with keyint 8 and an 8 px pan (queued back
+   to back, queued behind a spin of the card for its own time, and as the
+   group fold), its bound, the plain fold and the host time of a call.
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I``,
@@ -345,6 +353,12 @@ KERNELS = {
         "source": "metalhuffman_tpu_torch/csrc/int16_rate.cu",
         "replaces": "scratch/int16_rate.py:39",
     },
+    # no Pallas kernel: the JAX package folds with lax.scan
+    "temporal_fold": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/temporal_fold.cu",
+        "replaces": "metalhuffman_tpu/models/temporal.py:472",
+    },
 }
 # The least time the card could take: the larger of the bytes moved over the
 # HBM rate, and integer operations over the rate the SMs issue them, from the
@@ -428,11 +442,11 @@ def same_stream(a, b) -> bool:
 
 def launch_counts() -> tuple:
     """The launch-count dicts of every kernel's wrapper module."""
-    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda
+    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda, fold_cuda
     from metalhuffman_tpu_torch.probes import ablate_decode, int16_rate, strips
 
     return (decode_cuda.launches, encode_cuda.launches, strips.launches,
-            ablate_decode.launches, int16_rate.launches)
+            ablate_decode.launches, int16_rate.launches, fold_cuda.launches)
 
 
 def reset_launches() -> None:
@@ -1613,6 +1627,7 @@ def phase_g(device) -> tuple[dict, dict, dict]:
                                      device=device).cpu().numpy()
     equal(got, temporal.temporal_decode(res, k), "G1 numpy temporal_decode")
     expected["decode_images"] += 2
+    expected["temporal_fold"] += 1
     print("phase G1 ok: decode_video of the MHVT (B1, the group fold on the "
           "card, one fetch, outer CRC and FCRC) == the frames == numpy "
           "temporal_decode of the fetched residuals")
@@ -1625,6 +1640,7 @@ def phase_g(device) -> tuple[dict, dict, dict]:
         equal(got, temporal.temporal_decode_mc(res, k, mvs),
               f"G2 numpy temporal_decode_mc {name}")
         expected["decode_images"] += 2
+        expected["temporal_fold"] += 1
         print(f"phase G2 ok: decode_video of the MC MHVT {name} (vectors "
               f"{sorted({tuple(v) for v in mvs.tolist()})}) == the frames == "
               "numpy temporal_decode_mc of the fetched residuals")
@@ -1636,6 +1652,8 @@ def phase_g(device) -> tuple[dict, dict, dict]:
           g3[5:13, y0:y0 + rh, x0:x0 + rw], "G3 region")
     expected["decode_images"] += 2
     expected["decode_blocks"] += 1
+    expected["temporal_fold"] += 2  # the video and frame 13; the region
+    # of a container without motion folds on the host
     equal(mt.decode_color_video(blob3c, device), g3c, "G3 4-channel MHTC")
     equal(color.decode_color_frame(blob3c, 7, device), g3c[7],
           "G3 4-channel decode_color_frame 7")
@@ -1656,6 +1674,7 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     equal(color.decode_color_frame(blob4v, 3, device), g4[3],
           "G4 gray16 frame 3")
     expected["decode_images"] += 4
+    expected["temporal_fold"] += 1
     print("phase G4 ok: the u16 MC MHVT (the lo-to-hi carry), a gray16 "
           "image, a gray16 video and its frame 3 == the frames")
 
@@ -1676,6 +1695,7 @@ def phase_g(device) -> tuple[dict, dict, dict]:
         # the range, the frame, the chunks; an MC region is a range
         expected["decode_images"] += 2 + iter_chunks(t, k, 10) + int(mc)
         expected["decode_blocks"] += 0 if mc else 1
+        expected["temporal_fold"] += 2 + iter_chunks(t, k, 10) + int(mc)
     try:
         temporal.decode_temporal_video_region(
             flip_in_blob(blob1, bit_in), 9, 12, y0, x0, rh, rw, True,
@@ -1698,6 +1718,7 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     else:
         raise PhaseError("G5: a changed keyint decoded")
     expected["decode_images"] += 2  # the decode and the localizing decode
+    expected["temporal_fold"] += 1  # the fold before the CRC fails
     print("phase G5 ok: G1 and G2 decode_temporal_range 5-13, "
           f"decode_temporal_frame {t - 1}, iter_temporal_video(chunk_frames="
           f"10) with its CRC chain, a checked {rh}x{rw} region over frames "
@@ -1707,6 +1728,7 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     got = mt.decode_video(blob6, device)
     equal(got, f6, "G6 MHVT over MHV2")
     expected["decode_images"] += len(segs6)
+    expected["temporal_fold"] += 1
     del got
     print(f"phase G6 ok: decode_video of the MHVT over an MHV2 of segments "
           f"{segs6} == the {F1_FRAMES} frames")
@@ -1716,7 +1738,8 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     print(f"phase G launches: {counts}")
 
     # the kernels against their plain versions on G's inputs (not counted)
-    worst = {"decode_images": 0, "decode_blocks": 0}
+    worst = {"decode_images": 0, "decode_blocks": 0,
+             "temporal_fold": fold_cases(device)}
     for name, blob in (("G2 small residuals", blob2s),
                        ("G3 color planes", blob3)):
         planes = temporal._plane_inner(temporal.unwrap(blob)[0])[0]
@@ -1747,54 +1770,148 @@ def phase_g(device) -> tuple[dict, dict, dict]:
                            "G3": blob3, "G4": blob4}
 
 
-def mc_split(res, keyint: int, mvs) -> tuple[float, float]:
-    """One in-place motion-compensated fold of ``res`` as
-    ``temporal_fold_mc`` runs it, with CUDA events around each gather-roll
-    and each add -> (roll ms, add ms), summed."""
+#: phase G7: the fold kernel's cases, those the CPU tests hold its host
+#: side to (``tests/test_torch_fold_cuda.py``): (keyint, first_len, frames)
+#: with keyint 1, a short last group, fewer frames than keyint, a short
+#: first and last group, a first group of one frame
+G7_GROUPINGS = ((1, None, 6), (3, None, 10), (8, None, 5), (8, 3, 20),
+                (3, 1, 8))
+#: (H, W) whose uint8, uint8 x 3 and uint16 rows select every instance of
+#: the kernel: rows of 130/390/260 bytes take 2/2/4-byte accesses, 128/384/
+#: 256 16, 131/393/262 1/1/2, 132/396/264 4/4/8, 136/408/272 8/8/16, each
+#: with the previous frame in shared memory; rows past two buffers of it
+#: (over 116,224 bytes) read it from device memory: 116,240/348,720/232,480
+#: bytes with 16-byte accesses, 58,113 (shared) and 174,339/116,226 with 1
+#: and 2
+G7_SIZES = ((67, 130), (64, 128), (67, 131), (64, 132), (64, 136),
+            (3, 116240), (2, 58113))
+#: (keyint, first_len, frames) that split across tables (256 frames and 128
+#: groups a table): a group past 256 frames, 130 groups, both with a group
+#: after, whole groups past 256 frames
+G7_SPLITS = ((300, None, 300), (2, None, 260), (300, 5, 320), (8, 3, 300))
+
+
+def fold_vectors(kind: str, t: int, h: int, w: int, rng) -> np.ndarray:
+    """Phase G7's (T, 2) vectors: zero, negative, or past the frame's size
+    of both signs."""
+    if kind == "zero":
+        return np.zeros((t, 2), np.int16)
+    if kind == "negative":
+        return -rng.integers(1, 6, (t, 2)).astype(np.int16)
+    mvs = np.stack([rng.integers(-5 * h, 5 * h, t),
+                    rng.integers(-5 * w, 5 * w, t)], 1)
+    mvs[1] = (h + 2, -w - 3)
+    return mvs.astype(np.int16)
+
+
+def fold_err(a, b) -> int:
+    """Largest absolute difference of two folded stacks (uint16 ones read
+    through an int16 view, as torch has no uint16 arithmetic)."""
+    import torch
+
+    if a.dtype == torch.uint16:
+        a, b = (v.view(torch.int16).int() & 0xFFFF for v in (a, b))
+    return max_err(a, b)
+
+
+def fold_cases(device) -> int:
+    """Phase G7: the fold kernel against its plain version
+    (``temporal.fold_plain``, on the card) on every case of G7_GROUPINGS
+    and G7_SIZES, for uint8, uint8 x 3 and uint16 frames under zero,
+    negative and oversized vectors (the group fold for the zero ones), and
+    the frames of G7_SPLITS, which split across tables; each call must
+    launch the kernel once (no time where no group has two frames; once a
+    table when split). Returns the largest difference, 0."""
     import torch
 
     from metalhuffman_tpu_torch.models import temporal
+    from metalhuffman_tpu_torch.ops import fold_cuda
 
-    t, hh, ww = res.shape[:3]
-    x = res.view(torch.int16) if res.dtype == torch.uint16 else res
-    mv = np.asarray(mvs).astype(np.int64) % np.array([hh, ww])
-    mv_dev = torch.from_numpy(mv).to(res.device)
-    marks = {"roll": [], "add": []}
+    rng = np.random.default_rng(20)
+    worst, n = 0, 0
 
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
+    def run(label, fold, x, want_launches):
+        nonlocal worst, n
+        y = x.clone()
+        before = fold_cuda.launches["temporal_fold"]
+        fold(x, True)
+        grew = fold_cuda.launches["temporal_fold"] - before
+        fold(y, False)
+        err = fold_err(x, y)
+        worst, n = max(worst, err), n + 1
+        check(err == 0 and grew == want_launches,
+              f"phase G7 {label}: the kernel differs from plain by {err}, "
+              f"{grew} launches for {want_launches}")
 
-    for start, g, n in temporal._groups(t, keyint, None):
-        grp = x[start : start + g * n].view((g, n) + tuple(x.shape[1:]))
-        mvg = mv[start : start + g * n].reshape(g, n, 2)
-        dvg = mv_dev[start : start + g * n].view(g, n, 2)
-        for s in range(1, n):
-            if mvg[:, s].any():
-                e0 = event()
-                pred = temporal.roll_groups(grp[:, s - 1], dvg[:, s, 0],
-                                            dvg[:, s, 1])
-                e1 = event()
-                marks["roll"].append((e0, e1))
-            else:
-                pred = grp[:, s - 1]
-            e1 = event()
-            grp[:, s].add_(pred)
-            marks["add"].append((e1, event()))
+    for h, w in G7_SIZES:
+        for kind in ("u8", "color", "u16"):
+            dtype = np.uint16 if kind == "u16" else np.uint8
+            pixel = (3,) if kind == "color" else ()
+            for keyint, fl, t in G7_GROUPINGS:
+                res = rng.integers(0, np.iinfo(dtype).max + 1,
+                                   (t, h, w, *pixel)).astype(dtype)
+                want = int(any(g >= 2 for _, _, g in
+                               temporal._groups(t, keyint, fl)))
+                for vec in ("zero", "negative", "oversized"):
+                    mvs = fold_vectors(vec, t, h, w, rng)
+                    label = (f"{kind} {t}x{h}x{w} keyint {keyint} first_len "
+                             f"{fl} {vec}")
+
+                    def mc(x, kernel, mvs=mvs, keyint=keyint, fl=fl):
+                        if kernel:
+                            temporal.temporal_fold_mc(x, keyint, mvs, fl)
+                        else:
+                            temporal.fold_plain(x, keyint, mvs, fl)
+
+                    run(label, mc, torch.from_numpy(res).to(device), want)
+                    if vec == "zero":
+                        def group(x, kernel, keyint=keyint, fl=fl):
+                            if kernel:
+                                temporal.temporal_fold(x, keyint, fl)
+                            else:
+                                temporal.fold_plain(x, keyint, None, fl)
+
+                        run(label + " group fold", group,
+                            torch.from_numpy(res).to(device), want)
+    h, w = G7_SIZES[0]
+    for kind in ("u8", "u16"):
+        dtype = np.uint16 if kind == "u16" else np.uint8
+        for keyint, fl, t in G7_SPLITS:
+            res = rng.integers(0, np.iinfo(dtype).max + 1, (t, h, w)).astype(
+                dtype)
+            mvs = fold_vectors("oversized", t, h, w, rng)
+            tables = len(fold_cuda.fold_tables(
+                temporal._groups(t, keyint, fl),
+                mvs.astype(np.int64) % np.array([h, w]), h, 1))
+
+            def split(x, kernel, mvs=mvs, keyint=keyint, fl=fl):
+                if kernel:
+                    temporal.temporal_fold_mc(x, keyint, mvs, fl)
+                else:
+                    temporal.fold_plain(x, keyint, mvs, fl)
+
+            run(f"{kind} {t}x{h}x{w} keyint {keyint} first_len {fl}, "
+                f"{tables} tables", split, torch.from_numpy(res).to(device),
+                tables)
     torch.cuda.synchronize()
-    return tuple(sum(a.elapsed_time(b) for a, b in marks[k])
-                 for k in ("roll", "add"))
+    print(f"phase G7 ok: the fold kernel == fold_plain on the card in {n} "
+          "cases (uint8, uint8 x 3, uint16; keyint 1, 3, 8, fewer frames "
+          "than keyint, short first and last groups; zero, negative and "
+          "oversized vectors; every access width, rows in shared and in "
+          "device memory; spans split across tables), each call one launch "
+          "a table")
+    return worst
 
 
-def temporal_timings(device, card: str, blobs: dict) -> None:
+def temporal_timings(device, card: str, blobs: dict) -> dict:
     """Phase G's times, for G1-G4: staging, B1, the plane fold, the
-    temporal fold (CUDA events, in place on the decoded residuals; each
-    fold beside its byte bound, the stack read once and written once), the
-    fetch, the CRC and the whole ``decode_video`` call (host clock); the
-    MHTV decode of the same residuals (``decode_video`` of the inner, with
-    its fetch and CRC) as the yardstick; for the MC folds the gather-rolls
-    and the adds apart."""
+    temporal fold (the kernel and its plain version, CUDA events, in place
+    on the decoded residuals; beside the fold's byte bound, the stack read
+    once and written once), the fetch, the CRC and the whole
+    ``decode_video`` call (host clock); the MHTV decode of the same
+    residuals (``decode_video`` of the inner, with its fetch and CRC) as
+    the yardstick. Then :func:`fold_timings`; returns its entry of the
+    kernels line."""
     import torch
 
     import metalhuffman_tpu_torch as mt
@@ -1827,24 +1944,23 @@ def temporal_timings(device, card: str, blobs: dict) -> None:
             roofline(f"{label} plane fold", 2 * nb, 0)
             res = color.fold_video_planes_torch(planes, *cinfo)
         if mvs is None:
-            fold_ms = timed(f"{label} group fold (temporal_fold, keyint {k})",
+            fold_ms = timed(f"{label} group fold kernel (temporal_fold, "
+                            f"keyint {k})",
                             lambda x: temporal.temporal_fold(x, k, fl), [res],
                             card, nb, "folded")
         else:
-            fold_ms = timed(f"{label} MC fold (temporal_fold_mc, keyint {k})",
+            fold_ms = timed(f"{label} MC fold kernel (temporal_fold_mc, "
+                            f"keyint {k})",
                             lambda x: temporal.temporal_fold_mc(
                                 x, k, mvs, fl), [res], card, nb, "folded")
-            splits = [mc_split(res, k, mvs) for _ in range(HOST_ITERS)]
-            rolls = sorted(r for r, _ in splits)
-            adds = sorted(a for _, a in splits)
-            mid = HOST_ITERS // 2
-            print(f"time {label} MC fold split: gather-rolls median "
-                  f"{rolls[mid]:.4f} ms, adds median {adds[mid]:.4f} ms over "
-                  f"{HOST_ITERS} folds (CUDA events around each); the fold "
-                  f"{fold_ms / b1_ms:.3f}x B1 on the same frames, on {card}")
-        bms, _by = roofline(f"{label} temporal fold", 2 * nb, 0)
-        print(f"{label} temporal fold: {100 * bms / fold_ms:.1f} % of its "
-              "byte bound")
+        plain_ms = timed(f"{label} plain fold (fold_plain, keyint {k})",
+                         lambda x: temporal.fold_plain(x, k, mvs, fl), [res],
+                         card, nb, "folded", iters=HOST_ITERS)
+        bms, _by = roofline(f"{label} temporal fold",
+                            fold_bytes(res, k, fl), 0)
+        print(f"{label} temporal fold: kernel {100 * bms / fold_ms:.1f} % of "
+              f"its byte bound, {fold_ms / b1_ms:.3f}x B1 on the same "
+              f"frames; plain {plain_ms / fold_ms:.1f}x the kernel")
         host_timed(f"{label} fetch ({nb} B)", lambda x: x.cpu().numpy(),
                    [res], card, nb)
         frames = res.cpu().numpy()
@@ -1857,6 +1973,110 @@ def temporal_timings(device, card: str, blobs: dict) -> None:
         host_timed(f"{label} yardstick: decode_video of the residual MHTV",
                    lambda b: mt.decode_video(b, device), [planes_blob], card,
                    nb)
+    return fold_timings(device, card)
+
+
+def fold_bytes(res, keyint: int, first_len) -> int:
+    """The bytes the fold kernel moves on the stack ``res``: every frame of
+    a group of two or more read, each but the group's keyframe written (a
+    group of one frame is left alone)."""
+    from metalhuffman_tpu_torch.models import temporal
+
+    frames = sum(g * (2 * n - 1) for _, g, n in
+                 temporal._groups(res.shape[0], keyint, first_len) if n >= 2)
+    return frames * res[0].numel() * res.element_size()
+
+
+FOLD_PAN = (8, 8)  #: the 8 px pan of :func:`fold_timings`, (dy, dx) a frame
+SPIN_CYCLES = 200_000_000  #: ~0.1 s of the card's clock, for behind_spin
+SPIN_CALLS = 50
+
+
+def behind_spin(label: str, fn, x, card: str, nbytes: int) -> float:
+    """Mean ms of SPIN_CALLS calls of ``fn(x)`` queued behind a spin of the
+    card (``torch.cuda._sleep``), between two CUDA events: the host
+    enqueues every call while the card spins, so no call waits for the
+    host and the mean is the card's time of one call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(SPIN_CALLS):
+        fn(x)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    mean = start.elapsed_time(end) / SPIN_CALLS
+    print(f"time {label} queued behind a spin: mean {mean:.4f} ms over "
+          f"{SPIN_CALLS} calls, {nbytes / mean / 1e6:.3f} GB/s, on {card} "
+          f"(the host enqueued them in {host_ms:.2f} ms)")
+    return mean
+
+
+def fold_timings(device, card: str) -> dict:
+    """The fold kernel at the benchmark's shape: 30x2048x1536 uint8
+    residuals, keyint 8, an 8 px pan a frame. Held byte-equal to the plain
+    fold, then the kernel (CUDA events: queued back to back, and queued
+    behind a spin of the card, so the host has enqueued every call before
+    the first starts and the mean is the card's time), its byte bound (the
+    bytes it moves: every frame read, each non-key frame written; beside
+    it the stack read and written whole, as the benchmark's
+    ``fold_least_s`` counts), the plain fold (``fold_plain``: per slot a gather and an add,
+    ATen) and the host time of one ``temporal_fold_mc`` call (checks,
+    tables, the launch) -> the kernels line's entry, with the card's
+    time."""
+    import torch
+
+    from metalhuffman_tpu_torch.models import temporal
+    from metalhuffman_tpu_torch.ops import fold_cuda
+
+    t, h, w = FULL
+    rng = np.random.default_rng(21)
+    res = torch.from_numpy(rng.integers(0, 256, (t, h, w)).astype(
+        np.uint8)).to(device)
+    mvs = np.zeros((t, 2), np.int16)
+    mvs[1:] = FOLD_PAN
+    nb = res.numel()
+    x, y = res.clone(), res.clone()
+    temporal.temporal_fold_mc(x, G_KEYINT, mvs)
+    temporal.fold_plain(y, G_KEYINT, mvs)
+    err = fold_err(x, y)
+    check(err == 0, f"fold timings: the kernel differs from plain by {err}")
+    label = f"fold {t}x{w}x{h} keyint {G_KEYINT} pan {FOLD_PAN}"
+
+    def kernel(z):
+        return temporal.temporal_fold_mc(z, G_KEYINT, mvs)
+
+    back_to_back(f"{label} kernel", kernel, [x], card, nb)
+    ms = behind_spin(f"{label} kernel", kernel, x, card, nb)
+    group_ms = behind_spin(f"{label} kernel, zero vectors (the group fold)",
+                           lambda z: temporal.temporal_fold(z, G_KEYINT), x,
+                           card, nb)
+    plain_ms = timed(f"{label} plain", lambda z: temporal.fold_plain(
+        z, G_KEYINT, mvs), [y], card, nb, "folded", iters=HOST_ITERS)
+    bms, by = roofline(label, fold_bytes(x, G_KEYINT, None), 0)
+    whole_ms, _ = roofline(f"{label}, the stack read and written whole",
+                           2 * nb, 0)
+    torch.cuda.synchronize()
+    before = fold_cuda.launches["temporal_fold"]
+    t0 = time.perf_counter()
+    for _ in range(TIMED_ITERS):
+        kernel(x)
+    host_us = (time.perf_counter() - t0) / TIMED_ITERS * 1e6
+    torch.cuda.synchronize()
+    check(fold_cuda.launches["temporal_fold"] - before == TIMED_ITERS,
+          "fold timings: a call made other than one launch")
+    print(f"{label}: kernel {ms:.4f} ms on the card ({100 * bms / ms:.1f} % "
+          f"of the {bms:.4f} ms bound, {100 * whole_ms / ms:.1f} % of "
+          f"{whole_ms:.4f} ms), group fold {group_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x), host {host_us:.1f} us "
+          f"a call enqueued, on {card}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
 
 
 def free_port() -> int:
@@ -2444,7 +2664,8 @@ def phase_i(device, blob1: bytes) -> tuple[dict, dict, dict]:
         + 2 * len(segs1)  # --streaming, verify --streaming
         + 2 + len(segs1)  # --check (refused in segment 1), --salvage
         + n_bench,
-        decode_blocks=1 + 1)  # roundtrip 16x16, --region
+        decode_blocks=1 + 1,  # roundtrip 16x16, --region
+        temporal_fold=4)  # MHVT: whole, --frame, --check, verify
     check(counts == expected,
           f"phase I: kernel launches {counts}, expected {expected}")
     print(f"phase I launches: {counts}")
@@ -2519,15 +2740,21 @@ def j_expected(perf_args: dict) -> dict:
     ``bench.REPS`` timed and 3 same-input repetitions of ``iters`` calls
     and 3 latencies per rotation; 5 MHVT rows, each its rotations checked,
     a warm-up round of the fold-less and the folded call per rotation,
-    ``bench.REPS`` timed and 3 fold-less repetitions of ``iters`` calls."""
+    ``bench.REPS`` timed and 3 fold-less repetitions of ``iters`` calls.
+    The fold kernel: video_pipeline 2 (the temporal decode_video and
+    frame), streaming_pipeline 5 (3 temporal chunks, the append's open
+    group, the resumed capture's decode), each MHVT row's checked and
+    folded warm-up calls and its timed ones (none at one frame)."""
     from metalhuffman_tpu_torch import bench
 
     v = max(1, min(perf_args["variants"], perf_args["frames"]))
     iters = perf_args["iters"]
     video = v + v + bench.REPS * iters + 3 * iters + 3 * v
     mhvt = v + 2 * v + bench.REPS * iters + 3 * iters
+    # one frame is a group of one: its fold has nothing to launch
+    folds = (v + v + bench.REPS * iters) * (perf_args["frames"] > 1)
     return expect(decode_images=3 + 9 + 4 + 14 + 5 * video + 5 * mhvt,
-                  decode_blocks=1)
+                  decode_blocks=1, temporal_fold=2 + 5 + 5 * folds)
 
 
 def phase_j(device) -> tuple[dict, dict, list, dict]:
@@ -2795,6 +3022,7 @@ def phase_k(device) -> tuple[dict, dict, dict]:
 
         host_reps("K2 append", append_k2, times)
         expected["decode_images"] += K_REPS  # the open group, one segment
+        expected["temporal_fold"] += K_REPS  # its fold
         check(cap2.read_bytes() == blob2, "K2: capture 0-15 + append 15-30 "
               "differs from the one-shot MHVT capture")
         splits.sort()
@@ -2807,6 +3035,7 @@ def phase_k(device) -> tuple[dict, dict, dict]:
               f"(CUDA events), {dec_s:.4f} s host; the rest {enc_s:.4f} s")
         got = temporal.decode_temporal_video(blob2, device)
         expected["decode_images"] += 2
+        expected["temporal_fold"] += 1
         check(np.array_equal(got, g2), "K2 decode_temporal_video")
         print(f"phase K2 ok: MC MHVT {G_FRAMES}x{h}x{w}, keyint {G_KEYINT}, "
               f"FCRC, segments of {K_SEGMENT}: capture 0-15 + append 15-30 "
@@ -2836,10 +3065,12 @@ def phase_k(device) -> tuple[dict, dict, dict]:
             lambda: surgery.extract_video(blob2, ma, mb, info, device=device),
             times)
         expected["decode_images"] += 2 * K_REPS  # planes 8-16: 2 segments
+        expected["temporal_fold"] += K_REPS  # the group 8-16, folded
         check(info == {"reencoded_frames": 5},
               f"K3 MHVT extract: info {info}")
         got = temporal.decode_temporal_video(mext, device)
         expected["decode_images"] += 2
+        expected["temporal_fold"] += 1
         check(np.array_equal(got, g2[ma:mb]), "K3 MHVT extract 11-27")
         tail = mt.encode_video(f3[:K_CONCAT_TAIL])
         check(tail[:4] == fs.SHARED_MAGIC, "K3: the tail is no MHTV")
@@ -2944,6 +3175,7 @@ def phase_k(device) -> tuple[dict, dict, dict]:
 
 
 _B1 = ("decode_images",)
+_MHVT = ("decode_images", "temporal_fold")
 L_SHORT = ["--frames", "8"]  # the fold chains' and the trace's depth
 #: phase L: ``bench_torch.py``'s runs, by label -> (its arguments besides
 #: ``-v --device``, the metric its line must name, the kernels its path
@@ -2959,13 +3191,14 @@ L_RUNS = {
     "single": (["--mode", "single"], "decode_throughput", _B1),
     "encode": (["--mode", "encode"], "encode_throughput",
                ("encode_rows", "encode_stream")),
-    "temporal": (["--mode", "temporal"], "temporal_decode_throughput", _B1),
+    "temporal": (["--mode", "temporal"], "temporal_decode_throughput",
+                 _MHVT),
     "temporal motion": (["--mode", "temporal", "--motion", *L_SHORT],
-                        "temporal_mc_decode_throughput", _B1),
+                        "temporal_mc_decode_throughput", _MHVT),
     "temporal color": (["--mode", "temporal", "--inner", "color", *L_SHORT],
-                       "temporal_color_decode_throughput", _B1),
+                       "temporal_color_decode_throughput", _MHVT),
     "temporal u16": (["--mode", "temporal", "--inner", "u16", *L_SHORT],
-                     "temporal_u16_decode_throughput", _B1),
+                     "temporal_u16_decode_throughput", _MHVT),
 }
 L_TRACED = "video"  # the run made once more with --trace, at 8 frames
 L_TIMEOUT = 300  # seconds for one bench_torch.py process
@@ -3185,6 +3418,7 @@ def phase_m(device, card: str, f_ctx: dict) -> tuple[dict, dict]:
          g, "decode_images", 1)
     both(f"G2 MC MHVT {M_FRAMES}x{w}x{h}",
          lambda d: mt.decode_video(mhvt2, d), g, "decode_images", 1)
+    expected["temporal_fold"] += 2  # the two MHVT folds on the card
     s20 = f_ctx["f2 segment 0"]
     t20 = s20.block_offsets.size // ((h // 8) * (w // 8))
     past = int((s20.block_offsets >= np.uint32(1 << 31)).sum())
@@ -4247,12 +4481,13 @@ def main(argv: list[str]) -> int:
     entries.update(probe_timings(device, card))
     stream_timings(device, card, f_ctx)
     del f_ctx
-    temporal_timings(device, card, g_blobs)
+    entries["temporal_fold"] = temporal_timings(device, card, g_blobs)
     del g_blobs
     max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"],
                   h_errs["decode_images"], k_errs["decode_images"])
     b2_err = max(b2_err, f_errs["decode_blocks"], g_errs["decode_blocks"],
                  h_errs["decode_blocks"], k_errs["decode_blocks"], n_err)
+    errs["temporal_fold"] = g_errs["temporal_fold"]
     errs.update(decode_images=max_err, decode_blocks=b2_err,
                 encode_stream=max(stream_err, h_errs["encode_stream"]),
                 encode_rows=max(b3_err, h_errs["encode_rows"]))

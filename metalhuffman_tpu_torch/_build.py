@@ -31,6 +31,7 @@ KERNELS = {
     "decode_strips": CSRC / "decode_strips.cu",
     "ablate_decode": CSRC / "ablate_decode.cu",
     "int16_rate": CSRC / "int16_rate.cu",
+    "temporal_fold": CSRC / "temporal_fold.cu",
 }
 #: the headers each kernel source includes, part of its library's hash
 HEADERS = {
@@ -41,6 +42,7 @@ HEADERS = {
     "decode_strips": (CSRC / "decode_common.cuh",),
     "ablate_decode": (CSRC / "decode_common.cuh",),
     "int16_rate": (),
+    "temporal_fold": (),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "metalhuffman_tpu_torch"
 NVCC_FLAGS = (
@@ -77,6 +79,8 @@ _ARGTYPES = {
     # x, n, variant, step, thresh, out, stream
     "int16_rate": [_ptr, _i64, _int, ctypes.c_int32, ctypes.c_int32, _ptr,
                    _ptr],
+    # frames, h, row_bytes, elem_bytes, vec, rows, shared, table, stream
+    "temporal_fold": [_ptr, _i64, _i64, _int, _int, _int, _int, _ptr, _ptr],
 }
 #: the decode kernels' ``mht_<name>_shape`` (launch shape without a launch):
 #: [n_words,] n_blocks, [num_steps,] table_entries, t2_smem, mode,

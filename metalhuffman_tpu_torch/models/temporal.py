@@ -27,11 +27,13 @@ decode runs on ``device``: the inner through the decode kernels
 the plane fold (``color.fold_video_planes_torch``), then the group fold
 (:func:`temporal_fold`) or the motion-compensated fold
 (:func:`temporal_fold_mc`) on the true frames, then one fetch and the CRCs.
-The JAX package's packed-word folds exist because a TPU lane is 32 bits
-wide and has no byte addressing; a CUDA card addresses bytes, so the port
-folds byte and 16-bit frames directly. With ``device="native"`` the inner
-decodes on the host C++ decoder and the folds are the numpy ones
-(:func:`temporal_decode`, :func:`temporal_decode_mc`,
+On a CUDA tensor both folds are one launch of the fold kernel
+(``ops.fold_cuda``); the torch folds here are its plain versions and fold
+CPU tensors. The JAX package's packed-word folds exist because a TPU lane
+is 32 bits wide and has no byte addressing; a CUDA card addresses bytes,
+so the port folds byte and 16-bit frames directly. With
+``device="native"`` the inner decodes on the host C++ decoder and the folds
+are the numpy ones (:func:`temporal_decode`, :func:`temporal_decode_mc`,
 ``color.fold_video_planes``), as on the JAX package's native backend.
 """
 
@@ -47,6 +49,7 @@ import torch
 
 from .. import native
 from ..core import blocks
+from ..ops import fold_cuda
 from ..utils.profiling import mark
 from . import color, frame_stream
 from .config import CodecConfig
@@ -271,23 +274,28 @@ def _groups(t: int, keyint: int, first_len: int | None):
     return spans
 
 
+def _on_card(res: torch.Tensor) -> bool:
+    """True when the fold kernel folds ``res`` (a CUDA tensor), False when
+    the plain fold does (a CPU tensor); any other device raises."""
+    if fold_cuda.is_card(res):
+        return True
+    if res.device.type != "cpu":
+        raise ValueError(f"no fold for tensors on {res.device}")
+    return False
+
+
 def temporal_fold(res: torch.Tensor, keyint: int,
                   first_len: int | None = None) -> torch.Tensor:
     """Group fold on the tensor's device, in place: (T, ...) uint8 or uint16
     residuals become the frames, wrapping in the element type (the
     counterpart of the JAX package's ``temporal_decode_jax``); returns
-    ``res``.
-
-    ``keyint - 1`` slot adds over each (groups, keyint, ...) view, every
-    add touching one frame slot of every group; the keyframe slot is left
-    as it is.
-    """
+    ``res``. A CUDA tensor folds in one launch of the fold kernel
+    (``fold_cuda.fold``, every vector zero), a CPU tensor in
+    :func:`fold_plain`."""
+    if not _on_card(res):
+        return fold_plain(res, keyint, None, first_len)
     x = _fold_view(res)
-    for start, g, n in _groups(x.shape[0], keyint, first_len):
-        grp = x[start : start + g * n].view((g, n) + tuple(x.shape[1:]))
-        for s in range(1, n):
-            grp[:, s].add_(grp[:, s - 1])
-    return res
+    return fold_cuda.fold(res, _groups(x.shape[0], keyint, first_len))
 
 
 def roll_groups(prev: torch.Tensor, dy: torch.Tensor,
@@ -310,29 +318,59 @@ def roll_groups(prev: torch.Tensor, dy: torch.Tensor,
     return prev[gi, rows[:, :, None], cols[:, None, :]]
 
 
+def _motion(mvs, t: int) -> np.ndarray:
+    """The (T, 2) motion table as an array, or the corrupt-table error."""
+    mvs = np.asarray(mvs)
+    if mvs.ndim != 2 or mvs.shape != (t, 2):
+        raise ValueError(_MOTION_TABLE_ERROR)
+    return mvs
+
+
 def temporal_fold_mc(res: torch.Tensor, keyint: int, mvs,
                      first_len: int | None = None) -> torch.Tensor:
     """Motion-compensated fold on the tensor's device, in place: ``out[i] =
     res[i] + roll(out[i-1], mv[i])`` within each keyframe group, on
     (T, H, W) or (T, H, W, C) uint8 or (T, H, W) uint16 true frames (the
     counterpart of the JAX package's ``temporal_decode_mc_jax``); returns
-    ``res``.
-
-    Sequential within a group, vectorised across groups: each slot rolls
-    every group's previous frame by its own vector (:func:`roll_groups`) and
-    adds the residuals in place. A slot whose vectors are all zero (known on
-    the host) is a plain add. The frames must be the true (H, W) extent: a
-    roll over a padded extent would wrap pixels through the pad.
-    """
-    mvs = np.asarray(mvs)
-    t = res.shape[0]
-    if mvs.ndim != 2 or mvs.shape != (t, 2):
-        raise ValueError(_MOTION_TABLE_ERROR)
+    ``res``. A CUDA tensor folds in one launch of the fold kernel
+    (``fold_cuda.fold``), a CPU tensor in :func:`fold_plain`. The frames
+    must be the true (H, W) extent: a roll over a padded extent would wrap
+    pixels through the pad."""
+    if not _on_card(res):
+        return fold_plain(res, keyint, mvs, first_len)
+    mvs = _motion(mvs, res.shape[0])
     x = _fold_view(res)
+    spans = _groups(x.shape[0], keyint, first_len)
+    h, w = x.shape[1], x.shape[2]
+    return fold_cuda.fold(res, spans, mvs.astype(np.int64)
+                          % np.array([h, w]))  # np.roll's wrap
+
+
+def fold_plain(res: torch.Tensor, keyint: int, mvs=None,
+               first_len: int | None = None) -> torch.Tensor:
+    """The plain version of the fold kernel, in torch on ``res``'s own
+    device, in place: the group fold, or with ``mvs`` the motion-compensated
+    one; returns ``res``. The folds take it for CPU tensors alone;
+    ``chip_smoke.py`` holds the kernel to it on the card.
+
+    Sequential within a group, vectorised across groups: each slot adds
+    every group's previous frame, rolled by its own vector
+    (:func:`roll_groups`) where a vector of the slot is not zero, to the
+    residuals in place; the keyframe slot is left as it is.
+    """
+    mvs = None if mvs is None else _motion(mvs, res.shape[0])
+    x = _fold_view(res)
+    spans = _groups(x.shape[0], keyint, first_len)
+    if mvs is None:
+        for start, g, n in spans:
+            grp = x[start : start + g * n].view((g, n) + tuple(x.shape[1:]))
+            for s in range(1, n):
+                grp[:, s].add_(grp[:, s - 1])
+        return res
     h, w = x.shape[1], x.shape[2]
     mv = mvs.astype(np.int64) % np.array([h, w])  # np.roll's wrap
     mv_dev = torch.from_numpy(mv).to(x.device)
-    for start, g, n in _groups(t, keyint, first_len):
+    for start, g, n in spans:
         grp = x[start : start + g * n].view((g, n) + tuple(x.shape[1:]))
         mvg = mv[start : start + g * n].reshape(g, n, 2)
         dvg = mv_dev[start : start + g * n].view(g, n, 2)

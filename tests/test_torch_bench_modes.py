@@ -272,7 +272,7 @@ def test_bench_torch_prints_one_line_without_jax(label, mode_runs):
     assert len(counts) == 1
     assert json.loads(counts[0][len("launches "):]) == {
         "decode_images": 0, "decode_blocks": 0, "encode_stream": 0,
-        "encode_rows": 0}
+        "encode_rows": 0, "temporal_fold": 0}
 
 
 def _options(help_text: str) -> set:

@@ -195,10 +195,12 @@ def test_chip_smoke_phase_j_names_every_twin():
     assert "def phase_j(" in src and "phase_j(device)" in src
     assert {str(p.relative_to(ROOT)) for p in TWINS} == {
         path for path, _ in chip_smoke.J_TWINS.values()}
-    # the launch expectation of phase J: the examples' 30 B1 and 1 B2, and
-    # the perf matrix's 10 rows (5 of run_video, 5 of the MHVT decode)
+    # the launch expectation of phase J: the examples' 30 B1, 1 B2 and 7
+    # folds, and the perf matrix's 10 rows (5 of run_video, 5 of the MHVT
+    # decode, whose one-frame groups launch no fold)
     got = chip_smoke.j_expected({"frames": 1, "iters": 1, "variants": 2})
-    assert got == chip_smoke.expect(decode_images=150, decode_blocks=1)
+    assert got == chip_smoke.expect(decode_images=150, decode_blocks=1,
+                                    temporal_fold=7)
 
 
 @pytest.mark.parametrize("verb", ["extract", "concat", "resegment"])
