@@ -383,6 +383,7 @@ def _decode(prep: PreparedShared | PreparedNative, cfg: CodecConfig,
             out.view(t, bh, 8, bw, 8).add_(prep.init_grid.view(t, bh, 1, bw, 1))
         return out[:, : prep.height, : prep.width].contiguous(), end
     # other block sizes: the packed-block kernel, then a torch relayout
+    mark("blocks")
     blk = decode_cuda.decode_blocks(
         *args, num_steps=bd * bd, delta=kdelta, emit_end=emit_end,
         table=table)
@@ -406,7 +407,10 @@ def decode_shared_step(prep: PreparedShared, config: CodecConfig | None = None,
     (:func:`frames_from_raw` crops it as a view); zero-init streams need the
     image form, which folds the root bytes in after the kernel. Other block
     sizes, and a :class:`PreparedNative` batch (a CPU tensor), have no raw
-    form and always return the image form.
+    form and always return the image form. At other block sizes that form
+    is a fresh tensor of each call (the relayout's copy of the kernel's
+    fresh blocks), never a view of staged or earlier memory, so a caller may
+    keep the answers of many calls.
     """
     return _decode(prep, config or CodecConfig(), raw, emit_end=False)[0]
 
