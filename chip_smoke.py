@@ -8,7 +8,7 @@ the CUDA toolkit (nvcc) and g++:
 
 Phases (any failure exits nonzero and prints no result):
 
-1. Build the eight CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
+1. Build the nine CUDA kernel libraries from ``metalhuffman_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source, in parallel) and the host C++
    codec (g++), and print the build time and ptxas's register, shared-memory
    and spill lines.
@@ -235,7 +235,18 @@ Phases (any failure exits nonzero and prints no result):
    the mean of 12 queued calls with CUDA events, its plain version's
    median of 3, and the byte bound. One ``phase N`` JSON line holds them
    with the card, the launches and the host-clock decode times.
-16. Times, with CUDA events over distinct staged inputs: B1 with and without
+16. Phase O, C1 (``csrc/frame_crc.cu``), the per-frame CRC-32 a range
+   request computes on the card before its fetch: ``crc_cuda.frame_crcs``
+   against ``zlib.crc32`` of every frame, on the first 1 to 8 of 8 panned
+   2048x1536 photo frames, on stacks of 1, 3 and 8 frames of 1, 15, 16,
+   17, 4095, 2880 and 3072 bytes, and on stacks starting 1, 2, 4 and 8
+   bytes past an aligned address (loads of 1, 2, 4 and 8 bytes). Then its
+   time on the 8 bridge frames: one call between CUDA events and the card's
+   time queued behind a spin (median of 3 rounds), beside its byte bound,
+   and zlib's on the host. One ``phase O`` JSON line holds them. (Phases
+   F, K, M and N launch C1 too: each ``decode_range`` on the card of a
+   container with per-frame CRCs, once a request, once a frame of MHTS.)
+17. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
    shared memory per CUDA block) and its registers and spills, and B1 and
@@ -265,8 +276,8 @@ Phases (any failure exits nonzero and prints no result):
 
 The last two lines are a JSON object describing the kernels and the result
 line ``{"ok": true, "device": {...}}``; the ``phase H``, ``phase I``,
-``phase J``, ``phase K``, ``phase L``, ``phase M`` and ``phase N`` lines
-come before them.
+``phase J``, ``phase K``, ``phase L``, ``phase M``, ``phase N`` and
+``phase O`` lines come before them.
 
     python3 chip_smoke.py --ab BASELINE.cu
 
@@ -359,6 +370,12 @@ KERNELS = {
         "source": "metalhuffman_tpu_torch/csrc/temporal_fold.cu",
         "replaces": "metalhuffman_tpu/models/temporal.py:472",
     },
+    # no Pallas kernel: the JAX package checks a range's frames with zlib
+    "frame_crc": {
+        "route": "cuda",
+        "source": "metalhuffman_tpu_torch/csrc/frame_crc.cu",
+        "replaces": "metalhuffman_tpu/models/frame_stream.py:229",
+    },
 }
 # The least time the card could take: the larger of the bytes moved over the
 # HBM rate, and integer operations over the rate the SMs issue them, from the
@@ -442,11 +459,13 @@ def same_stream(a, b) -> bool:
 
 def launch_counts() -> tuple:
     """The launch-count dicts of every kernel's wrapper module."""
-    from metalhuffman_tpu_torch.ops import decode_cuda, encode_cuda, fold_cuda
+    from metalhuffman_tpu_torch.ops import (crc_cuda, decode_cuda, encode_cuda,
+                                            fold_cuda)
     from metalhuffman_tpu_torch.probes import ablate_decode, int16_rate, strips
 
     return (decode_cuda.launches, encode_cuda.launches, strips.launches,
-            ablate_decode.launches, int16_rate.launches, fold_cuda.launches)
+            ablate_decode.launches, int16_rate.launches, fold_cuda.launches,
+            crc_cuda.launches)
 
 
 def reset_launches() -> None:
@@ -1267,6 +1286,7 @@ def phase_f(device) -> tuple[dict, dict, dict]:
     del got
     got, *_ = fs.decode_range(blob1, 130, 140, device=device)  # FCRC-checked
     expected["decode_images"] += 2
+    expected["frame_crc"] += 1  # the CRC-32s of the ten frames, on the card
     check(np.array_equal(got, f1[130:140]), "F1 decode_range 130-140")
     for t in (135, 140):
         si, ft = (0, t) if t < 136 else (1, t - 136)
@@ -1321,6 +1341,7 @@ def phase_f(device) -> tuple[dict, dict, dict]:
     expected["decode_images"] += F3_FRAMES
     got, *_ = fs.decode_range(blob3, 10, 15, device=device)
     expected["decode_images"] += 5
+    expected["frame_crc"] += 5  # each record's CRC-32, a frame at a time
     check(np.array_equal(got, f3[10:15]), "F3 decode_range 10-15")
     print(f"phase F3 ok: decode_batch ({F3_FRAMES} launches, one table "
           "each), iter_stream_frames(check=True) with the record CRCs, "
@@ -3134,6 +3155,7 @@ def phase_k(device) -> tuple[dict, dict, dict]:
               "write_stream(encode_frames(...))")
         got, *_ = fs.decode_range(blob4, 0, F3_FRAMES, device=device)
         expected["decode_images"] += F3_FRAMES
+        expected["frame_crc"] += F3_FRAMES  # each record's CRC-32
         check(np.array_equal(got, f3), "K4 MHTS: decode differs")
         print(f"phase K4 ok: sub-green {G_FRAMES}x{G_COLOR[0]}x{G_COLOR[1]}"
               f"x3 and the {F3_FRAMES}-table MHTS pushed {K_COLOR_CHUNK} at a "
@@ -3407,6 +3429,7 @@ def phase_m(device, card: str, f_ctx: dict) -> tuple[dict, dict]:
     both(f"F1 MHV2 decode_range {a}-{b}",
          lambda d: fs.decode_range(blob1, a, b, device=d)[0], f1[a:b],
          "decode_images", 2)
+    expected["frame_crc"] += 1  # the card's range checks its FCRC there
     y0, x0, rh, rw = F_REGION
     a, b = M_REGION_FRAMES
     both(f"F1 MHV2 {rh}x{rw} region of frames {a}-{b - 1} (checked)",
@@ -3562,6 +3585,7 @@ def phase_n(device, card: str) -> tuple[dict, int, dict]:
     a, b = N_RANGE
     got = fs.decode_range(blobs[N_FCRC, "photo"], a, b, device=device)[0]
     expected["decode_blocks"] += 1
+    expected["frame_crc"] += 1
     check(np.array_equal(got, contents["photo"][a:b]),
           f"phase N decode_range {a}-{b}: the frames differ from the source")
     print(f"phase N ok: decode_range {a}-{b} of the photo MHTV at "
@@ -3623,6 +3647,99 @@ def phase_n(device, card: str) -> tuple[dict, int, dict]:
           f"plain version, {t_encode:.1f} s host encode)")
     return counts, worst, {"card": card, "launches": counts, "b2": numbers,
                            "s": times, "phase_s": total}
+
+
+O_SIZES = (1, 15, 16, 17, 4095, 40 * 72, 48 * 64)  #: phase O: frame bytes
+O_DEPTHS = (1, 3, 8)  #: phase O: frames a stack of each of O_SIZES
+O_OFFSETS = (1, 2, 4, 8)  #: phase O: bytes a misaligned stack starts late
+O_FRAMES = 8  #: phase O: the most frames of the range cell's requests
+O_ROUNDS = 3  #: phase O: rounds of queued calls behind a spin
+
+
+def phase_o(device, card: str) -> tuple[dict, int, dict, dict]:
+    """C1, the per-frame CRC-32 (``csrc/frame_crc.cu`` through
+    ``crc_cuda.frame_crcs``), on the card against ``zlib.crc32`` of every
+    frame: the first 1 to 8 of 8 panned 2048x1536 photo frames (a range
+    request's frames), random stacks of 1, 3 and 8 frames of the odd sizes
+    ``O_SIZES``, and stacks of 3 frames starting ``O_OFFSETS`` bytes past an
+    aligned address (every access width). Then its time on the 8 bridge
+    frames, L2-warm as after a range request's decode: one call between
+    CUDA events (median of 12), and the card's time of a call queued behind
+    a spin (median of ``O_ROUNDS`` rounds), beside the byte bound (every
+    frame byte read once, 4 bytes a frame written), and zlib's on the host
+    -> (launches, frames whose CRC differs from zlib's, the ``phase O``
+    line's numbers, the kernels line's entry)."""
+    import statistics
+
+    import torch
+
+    from metalhuffman_tpu_torch.ops import crc_cuda
+
+    _t, h, w = FULL
+    bridge = photo_frames(h, w, O_FRAMES)
+    rng = np.random.default_rng(22)
+    expected = expect()
+    wrong = 0
+    reset_launches()
+
+    def hashed(label, x):
+        nonlocal wrong
+        got = crc_cuda.frame_crcs(x).cpu().numpy().tolist()
+        expected["frame_crc"] += 1
+        want = [zlib.crc32(f.tobytes())
+                for f in x.cpu().numpy().reshape(x.shape[0], -1)]
+        bad = sum(g != z for g, z in zip(got, want))
+        wrong += bad
+        check(bad == 0, f"phase O {label}: {bad} of {len(want)} CRCs differ "
+              "from zlib's")
+
+    x = torch.from_numpy(bridge).to(device)
+    for k in range(1, O_FRAMES + 1):
+        hashed(f"{k} bridge frames", x[:k])
+    for n in O_SIZES:
+        for t in O_DEPTHS:
+            hashed(f"{t}x{n} B", torch.from_numpy(
+                rng.integers(0, 256, (t, n), dtype=np.uint8)).to(device))
+    widths, misaligned = set(), 0
+    for n in (*O_SIZES[3:], h * w):
+        for off in O_OFFSETS:
+            buf = torch.from_numpy(
+                rng.integers(0, 256, off + 3 * n, dtype=np.uint8)).to(device)
+            xs = buf[off:].view(3, n)
+            vec = crc_cuda.access_width(n, xs.data_ptr())
+            widths.add(vec)
+            misaligned += 1
+            hashed(f"3x{n} B at +{off} ({vec} B loads)", xs)
+    check(widths == {1, 2, 4, 8}, f"phase O: access widths {widths}")
+    counts = read_launches()
+    check(counts == expected,
+          f"phase O: kernel launches {counts}, expected {expected}")
+    print(f"phase O ok: C1 == zlib.crc32 on {O_FRAMES} stacks of 1-"
+          f"{O_FRAMES} bridge frames, {len(O_SIZES) * len(O_DEPTHS)} stacks "
+          f"of {O_SIZES} B frames and {misaligned} misaligned ones "
+          f"(loads of {sorted(widths)} B); launches {counts}")
+
+    nb = x.numel()
+    label = f"frame CRC {O_FRAMES}x{w}x{h}"
+    one_ms = timed(f"{label} one call", crc_cuda.frame_crcs, [x], card, nb,
+                   "hashed")
+    ms = statistics.median(behind_spin(f"{label} round {r}",
+                                       crc_cuda.frame_crcs, x, card, nb)
+                           for r in range(O_ROUNDS))
+    bms, by = roofline(label, nb + 4 * O_FRAMES, 0)
+    plain_ms = host_timed(
+        f"{label} zlib.crc32 on the host",
+        lambda f: [zlib.crc32(g.tobytes()) for g in f], [bridge], card, nb)
+    print(f"{label}: C1 {ms * 1e3:.2f} us on the card, median of "
+          f"{O_ROUNDS} rounds ({100 * bms / ms:.1f} % of the {bms * 1e3:.2f} "
+          f"us bound), one call between events {one_ms * 1e3:.2f} us; zlib "
+          f"{plain_ms:.3f} ms on the host ({plain_ms / ms:.0f}x), on {card}")
+    numbers = {"card": card, "launches": counts, "frames": O_FRAMES,
+               "ms": ms, "one_call_ms": one_ms, "bound_ms": bms,
+               "zlib_host_ms": plain_ms}
+    return counts, wrong, numbers, dict(max_abs_err=wrong, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bms,
+                                        bound_by=by)
 
 
 def timed(label: str, fn, inputs, card: str, nbytes: int,
@@ -4474,6 +4591,9 @@ def main(argv: list[str]) -> int:
     n_counts, n_err, n_numbers = phase_n(device, card)
     for name, count in n_counts.items():
         launches[name] += count
+    o_counts, o_err, o_numbers, o_entry = phase_o(device, card)
+    for name, count in o_counts.items():
+        launches[name] += count
     entries = timings(device, card)
     entries["encode_stream"], entries["encode_rows"] = encode_timings(
         device, card)
@@ -4482,6 +4602,7 @@ def main(argv: list[str]) -> int:
     stream_timings(device, card, f_ctx)
     del f_ctx
     entries["temporal_fold"] = temporal_timings(device, card, g_blobs)
+    entries["frame_crc"] = o_entry
     del g_blobs
     max_err = max(max_err, f_errs["decode_images"], g_errs["decode_images"],
                   h_errs["decode_images"], k_errs["decode_images"])
@@ -4507,6 +4628,7 @@ def main(argv: list[str]) -> int:
                                    **l_runs}))
     print("phase M " + json.dumps({"launches": m_counts, **m_numbers}))
     print("phase N " + json.dumps(n_numbers))
+    print("phase O " + json.dumps(o_numbers))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          **entries[name], "library_ms": None}

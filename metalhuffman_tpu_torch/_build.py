@@ -32,6 +32,7 @@ KERNELS = {
     "ablate_decode": CSRC / "ablate_decode.cu",
     "int16_rate": CSRC / "int16_rate.cu",
     "temporal_fold": CSRC / "temporal_fold.cu",
+    "frame_crc": CSRC / "frame_crc.cu",
 }
 #: the headers each kernel source includes, part of its library's hash
 HEADERS = {
@@ -43,6 +44,7 @@ HEADERS = {
     "ablate_decode": (CSRC / "decode_common.cuh",),
     "int16_rate": (),
     "temporal_fold": (),
+    "frame_crc": (),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "metalhuffman_tpu_torch"
 NVCC_FLAGS = (
@@ -81,6 +83,8 @@ _ARGTYPES = {
                    _ptr],
     # frames, h, row_bytes, elem_bytes, vec, rows, shared, table, stream
     "temporal_fold": [_ptr, _i64, _i64, _int, _int, _int, _int, _ptr, _ptr],
+    # frames, frame bytes, frames, vec, params, out, stream
+    "frame_crc": [_ptr, _i64, _i64, _int, _ptr, _ptr, _ptr],
 }
 #: the decode kernels' ``mht_<name>_shape`` (launch shape without a launch):
 #: [n_words,] n_blocks, [num_steps,] table_entries, t2_smem, mode,

@@ -53,6 +53,24 @@ def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     return (crc1 ^ crc2) & 0xFFFFFFFF
 
 
+def zeros_matrices(first_bytes: int, count: int) -> list[list[int]]:
+    """The GF(2) matrices that feed ``first_bytes * 2**k`` zero bytes
+    through the CRC register, for k < ``count`` (``first_bytes`` a power of
+    two): 32 columns each, column i the image of bit i, so that
+    ``crc32_combine(c, 0, L)`` is the matrix of L bytes applied to ``c``."""
+    if first_bytes < 1 or first_bytes & (first_bytes - 1):
+        raise ValueError(f"first_bytes must be a power of two, not "
+                         f"{first_bytes}")
+    mat = [_POLY] + [1 << (n - 1) for n in range(1, 32)]  # one zero bit
+    for _ in range((8 * first_bytes).bit_length() - 1):
+        mat = _gf2_square(mat)
+    out = []
+    for _ in range(count):
+        out.append(mat)
+        mat = _gf2_square(mat)
+    return out
+
+
 def crc32_concat(parts: list[tuple[int, int]]) -> int:
     """CRC-32 of the concatenation of parts given ``[(crc, length), ...]``."""
     crc, _ = parts[0]

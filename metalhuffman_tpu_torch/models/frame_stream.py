@@ -49,7 +49,7 @@ import torch
 
 from .. import native
 from ..core import blocks, container, delta as delta_mod
-from ..ops import decode_cuda
+from ..ops import crc_cuda, decode_cuda
 from ..parallel import mesh as mesh_mod, shard_decode
 from ..utils.profiling import mark, span
 from .config import CodecConfig
@@ -215,17 +215,20 @@ def compute_frame_crcs(frames) -> np.ndarray:
                      for f in frames], np.uint32)
 
 
-def verify_frame_crcs(frames, fcrcs, base: int = 0) -> None:
+def verify_frame_crcs(frames, fcrcs, base: int = 0, crcs=None) -> None:
     """Check frames [base, base+len) against a per-frame CRC table (None
-    passes)."""
+    passes). ``crcs``: the frames' CRC-32s where the caller has them
+    (computed on the card by ``crc_cuda.frame_crcs``), else zlib hashes
+    each frame here."""
     if fcrcs is None:
         return
     if fcrcs.shape[0] < base + len(frames):
         raise ValueError(
             "corrupt container (frame CRC table shorter than the stream)")
     for i, f in enumerate(frames):
-        if (zlib.crc32(np.ascontiguousarray(f).tobytes()) & 0xFFFFFFFF
-                != int(fcrcs[base + i])):
+        got = (zlib.crc32(np.ascontiguousarray(f).tobytes()) & 0xFFFFFFFF
+               if crcs is None else int(crcs[i]))
+        if got != int(fcrcs[base + i]):
             raise ValueError(
                 f"decoded frame {base + i} fails its recorded CRC-32 — "
                 "the stream is corrupt")
@@ -771,9 +774,12 @@ def decode_range(data: bytes, a: int, b: int,
     range may straddle segments, each with its own table. The header fixes
     block_dim and precoder. ``frames`` is a (b-a, H, W) uint8 numpy array,
     checked against the per-frame CRC table where the container records
-    one; with ``to_host=False`` it is the tensor on ``device`` (segments
-    joined by ``torch.cat``), unchecked, for a caller that goes on with
-    device work before one fetch.
+    one: on a CUDA device the card computes the CRC-32 of the decoded frames
+    before the fetch (one launch of ``crc_cuda.frame_crcs``, one a frame of
+    MHTS) and the host compares the integers; CPU tensors and ``native``
+    hash the fetched frames with zlib. With ``to_host=False`` it is the
+    tensor on ``device`` (segments joined by ``torch.cat``), unchecked, for
+    a caller that goes on with device work before one fetch.
     """
     return decode_range_parsed(parse_range_container(data), a, b, config,
                                to_host, device=device)
@@ -785,10 +791,14 @@ def decode_range_parsed(parsed, a: int, b: int,
     """:func:`decode_range` on a :func:`parse_range_container` handle.
 
     Under a profiler each decode marks ``range.stage``
-    (:func:`prepare_shared`) and ``range.decode`` (the launch and the crop),
-    then with ``to_host`` ``range.fetch`` (the wait on the device and the
-    copy to the host), and spans ``range.crc`` (the per-frame CRC-32 check,
-    host work alone): once a request, or once a frame in an MHTS
+    (:func:`prepare_shared`) and ``range.decode`` (the launch and the crop;
+    on a CUDA device, with ``to_host`` and a recorded CRC, the launch of
+    ``crc_cuda.frame_crcs`` over the very frames fetched), then with
+    ``to_host`` ``range.fetch`` (the wait on the device and the copy of the
+    frames, and of their CRC-32s where the card computed them, to the host),
+    and spans ``range.crc`` (the per-frame CRC-32 check, host work alone:
+    a comparison of integers after the card's CRC, zlib's hash of each frame
+    after any other decode): once a request, or once a frame in an MHTS
     container."""
     kind, payload, fcrcs = parsed
     if kind == "stream":
@@ -804,12 +814,18 @@ def decode_range_parsed(parsed, a: int, b: int,
             mark("range.stage")
             prep = prepare_shared(streams[i], 1, h, w, scfg, device=device)
             mark("range.decode")
-            img = decode_shared_step(prep, scfg)[0]
+            one = decode_shared_step(prep, scfg)
+            img = one[0]
             if to_host:
+                crc = (crc_cuda.frame_crcs(one)
+                       if fcrcs[i] and crc_cuda.is_card(one) else None)
                 mark("range.fetch")
                 img = img.cpu().numpy()
+                if crc is not None:
+                    crc = int(crc.cpu().numpy()[0])
                 with span("range.crc"):
-                    if fcrcs[i] and zlib.crc32(img.tobytes()) != fcrcs[i]:
+                    if fcrcs[i] and (zlib.crc32(img.tobytes()) if crc is None
+                                     else crc) != fcrcs[i]:
                         raise ValueError(
                             f"decoded frame {i} fails its recorded CRC-32 — "
                             "the stream is corrupt")
@@ -832,10 +848,14 @@ def decode_range_parsed(parsed, a: int, b: int,
     frames = outs[0] if len(outs) == 1 else torch.cat(outs)
     if not to_host:
         return frames, h, w
+    crcs = (crc_cuda.frame_crcs(frames)
+            if fcrcs is not None and crc_cuda.is_card(frames) else None)
     mark("range.fetch")
     frames = frames.cpu().numpy()
+    if crcs is not None:
+        crcs = crcs.cpu().numpy()
     with span("range.crc"):
-        verify_frame_crcs(frames, fcrcs, base=a)
+        verify_frame_crcs(frames, fcrcs, base=a, crcs=crcs)
     return frames, h, w
 
 
