@@ -522,11 +522,11 @@ def phase_a(device, cases) -> int:
         frames = synthetic(t, h, w)
         stream = fs.encode_frames_shared(frames, cfg)
         prep = fs.prepare_shared(stream, t, h, w, cfg, device=device)
-        args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+        args = (prep.words, prep.offsets, prep.code)
         geo = dict(num_frames=t, bh=prep.bh, bw=prep.bw,
                    delta=cfg.delta and not cfg.delta2d, delta2d=cfg.delta2d)
         plain = decode_cuda.decode_images_plain(*args, **geo)
-        kern = decode_cuda.decode_images(*args, **geo, table=prep.table)
+        kern = decode_cuda.decode_images(*args, **geo)
         err = int((kern.int() - plain.int()).abs().max())
         worst = max(worst, err)
         check(err == 0, f"phase A {name}: kernel differs from plain by {err}")
@@ -557,9 +557,9 @@ def phase_a_end_bits(device) -> int:
     payload = encode_payload(frames)
     total_bits = int(stream.widths.astype(np.int64)[payload].sum())
     prep = fs.prepare_shared(stream, t, h, w, device=device)
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     geo = dict(num_frames=t, bh=prep.bh, bw=prep.bw, delta=True, emit_end=True)
-    img, end = decode_cuda.decode_images(*args, **geo, table=prep.table)
+    img, end = decode_cuda.decode_images(*args, **geo)
     pimg, pend = decode_cuda.decode_images_plain(*args, **geo)
     err = max(int((img.int() - pimg.int()).abs().max()),
               int((end - pend).abs().max()))
@@ -592,15 +592,14 @@ def b2_case(device, phase: str, frame: np.ndarray, bd: int, kw: dict) -> int:
     name = f"B2 {bd}x{bd} " + ("delta2d" if cfg.delta2d else
                                "delta" if cfg.delta else "none")
     stream = fs.encode_frames_shared(frame[None], cfg)
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words).to(device),
             torch.from_numpy(offsets).to(device),
-            torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, device))
     in_kernel_d2 = cfg.delta2d and bd == 8
     geo = dict(num_steps=bd * bd, delta=cfg.delta and not cfg.delta2d,
                delta2d=in_kernel_d2, emit_end=True)
-    out, end = decode_cuda.decode_blocks(
-        *args, **geo, table=decode_cuda.lookup_table(meta, device))
+    out, end = decode_cuda.decode_blocks(*args, **geo)
     pout, pend = decode_cuda.decode_blocks_plain(*args, **geo)
     err = max(int((out.int() - pout.int()).abs().max()),
               int((end - pend).abs().max()))
@@ -674,22 +673,19 @@ def phase_a_tables(device) -> int:
 
     worst = 0
     for name, widths, words, offsets, src in table_cases():
-        meta = decode_cuda.canonical_meta(widths)
         nb = offsets.size
         args = (torch.from_numpy(words).to(device),
                 torch.from_numpy(offsets).to(device),
-                torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj)
+                decode_cuda.stage_code(widths, device))
         b1_geo = dict(num_frames=1, bh=1, bw=nb, delta=True, emit_end=True)
         b2_geos = [dict(num_steps=64, delta=False, delta2d=True),
                    dict(num_steps=256, delta=True),
                    dict(num_steps=4, delta=False)]
-        table = decode_cuda.lookup_table(meta, device)
-        runs = [(decode_cuda.decode_images(*args, **b1_geo, table=table),
+        runs = [(decode_cuda.decode_images(*args, **b1_geo),
                  decode_cuda.decode_images_plain(*args, **b1_geo))]
         for geo in b2_geos:
             runs.append((
-                decode_cuda.decode_blocks(*args, **geo, emit_end=True,
-                                          table=table),
+                decode_cuda.decode_blocks(*args, **geo, emit_end=True),
                 decode_cuda.decode_blocks_plain(*args, **geo, emit_end=True)))
         for (out, end), (pout, pend) in runs:
             err = max(int((out.int() - pout.int()).abs().max()),
@@ -703,7 +699,8 @@ def phase_a_tables(device) -> int:
                   f"phase A {name}: B2 differs from the source")
         print(f"phase A ok: {name} ({nb} blocks): B1 and B2 at 64 (delta2d),"
               f" 256 (delta), 4 == plain in bytes and end bits; table "
-              f"{table.nbytes} B, T2 {'smem' if table.t2_in_smem else 'L1'}")
+              f"{args[2].nbytes} B, T2 "
+              f"{'smem' if args[2].t2_in_smem else 'L1'}")
     return worst
 
 
@@ -856,7 +853,7 @@ def plain_mask(prep, cfg) -> np.ndarray:
     """The checked step's error mask, computed with the plain versions."""
     from metalhuffman_tpu_torch.ops import decode_cuda
 
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     kdelta = cfg.delta and not cfg.delta2d
     if prep.block_dim == 8:
         _, end = decode_cuda.decode_images_plain(
@@ -1046,16 +1043,14 @@ def wide_lut_stream(n_blocks: int):
                                    offs[:-1:64].astype(np.uint32))
 
 
-def probe_tables(prep, widths, device) -> dict:
-    """The tables the S2 variants take beyond the staged stream's: the
-    ``lut`` variant's 8/8 table, B1's 11/5 table (``prep.table``) and
-    ``b1_esc32``'s u32 one."""
-    from metalhuffman_tpu_torch.ops import decode_cuda
+def probe_tables(widths, device) -> dict:
+    """The tables the S2 variants take beyond the staged stream's code (B1's
+    11/5 table): the ``lut`` variant's 8/8 table and ``b1_esc32``'s u32
+    one."""
     from metalhuffman_tpu_torch.probes import ablate_decode
 
-    return dict(lut=ablate_decode.lut_tables(widths, device), table=prep.table,
-                table32=ablate_decode.esc32_table(
-                    decode_cuda.canonical_meta(widths), device))
+    return dict(lut=ablate_decode.lut_tables(widths, device),
+                table32=ablate_decode.esc32_table(widths, device))
 
 
 def probe_cases(device) -> list:
@@ -1081,7 +1076,7 @@ def probe_cases(device) -> list:
     out = []
     for name, frames, stream, geo in cases:
         prep = fs.prepare_shared(stream, *geo, device=device)
-        out.append((name, prep, probe_tables(prep, stream.widths, device),
+        out.append((name, prep, probe_tables(stream.widths, device),
                     frames))
     return out
 
@@ -1102,11 +1097,11 @@ def phase_e(device) -> tuple[dict, dict]:
 
     reset_launches()
     for name, p, tabs, frames in cases:
-        args = (p.words, p.offsets, p.symbols, p.bounds, p.adj)
+        args = (p.words, p.offsets, p.code)
         geo = dict(num_frames=p.num_frames, bh=p.bh, bw=p.bw)
         plain = decode_cuda.decode_images_plain(*args, **geo, delta=True)
         outs = {f"S1 {form}": strips.decode_strips(
-            *args, **geo, table=p.table, prefetch=prefetch)
+            *args, **geo, prefetch=prefetch)
             for form, prefetch in strips.FORMS.items()}
         for v in ablate_decode.VARIANTS:
             outs[f"S2 {v}"] = ablate_decode.ablate_decode(
@@ -1130,8 +1125,9 @@ def phase_e(device) -> tuple[dict, dict]:
               f"{', '.join(ablate_decode.VARIANTS)}"
               f" == plain{' == frames' if frames is not None else ''} "
               f"({p.offsets.numel()} blocks, bw {p.bw}, T2 tables "
-              f"{tabs['lut'].num_t2} at 8/8, {p.table.num_t2} at 11/5, "
-              f"{len(ablate_decode.pruned_terms(p.bounds, p.adj)[0])} "
+              f"{tabs['lut'].num_t2} at 8/8, {p.code.num_t2} at 11/5, "
+              f"{len(ablate_decode.pruned_terms(p.code.bounds,
+                                                p.code.adj)[0])} "
               "compare terms)")
     for v, x in rates.items():
         out = int16_rate.int16_rate(x, v)
@@ -1205,11 +1201,11 @@ def b1_against_plain(prep, cfg, emit_end: bool) -> int:
     The kernel's launch is counted outside any phase's window."""
     from metalhuffman_tpu_torch.ops import decode_cuda
 
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     geo = dict(num_frames=prep.num_frames, bh=prep.bh, bw=prep.bw,
                delta=cfg.delta and not cfg.delta2d, delta2d=cfg.delta2d,
                emit_end=emit_end)
-    got = decode_cuda.decode_images(*args, **geo, table=prep.table)
+    got = decode_cuda.decode_images(*args, **geo)
     want = decode_cuda.decode_images_plain(*args, **geo)
     if not emit_end:
         return int((got.int() - want.int()).abs().max())
@@ -1385,9 +1381,9 @@ def phase_f(device) -> tuple[dict, dict, dict]:
     for si, (stream, lo, hi) in enumerate(((segs1[0][0], 134, 136),
                                            (segs1[1][0], 0, 3))):
         sel = (frame_sel[None, :] + per * np.arange(lo, hi)[:, None]).ravel()
-        staged, table = stage_selection(stream, sel, device=device)
+        staged = stage_selection(stream, sel, device=device)
         got = decode_cuda.decode_blocks(*staged, num_steps=64, delta=True,
-                                        emit_end=True, table=table)
+                                        emit_end=True)
         want = decode_cuda.decode_blocks_plain(*staged, num_steps=64,
                                                delta=True, emit_end=True)
         err = max(int((got[0].int() - want[0].int()).abs().max()),
@@ -1398,7 +1394,7 @@ def phase_f(device) -> tuple[dict, dict, dict]:
     for i, f in enumerate(prep3.frames):
         err = int((fs.decode_batch(dataclasses.replace(prep3, frames=(f,)))
                    .int() - decode_cuda.decode_images_plain(
-                       f.words, f.offsets, f.symbols, f.bounds, f.adj,
+                       f.words, f.offsets, f.code,
                        num_frames=1, bh=f.bh, bw=f.bw, delta=True).int()
                    ).abs().max())
         worst["decode_images"] = max(worst["decode_images"], err)
@@ -1773,9 +1769,9 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     frame_sel = (np.arange(y0 // 8, (y0 + rh) // 8)[:, None] * bw
                  + np.arange(x0 // 8, (x0 + rw) // 8)[None, :]).ravel()
     sel = (frame_sel[None, :] + per * np.arange(8, 12)[:, None]).ravel()
-    staged, table = stage_selection(s1, sel, device=device)
+    staged = stage_selection(s1, sel, device=device)
     got = decode_cuda.decode_blocks(*staged, num_steps=64, delta=True,
-                                    emit_end=True, table=table)
+                                    emit_end=True)
     want = decode_cuda.decode_blocks_plain(*staged, num_steps=64, delta=True,
                                            emit_end=True)
     err = max(int((got[0].int() - want[0].int()).abs().max()),
@@ -2161,7 +2157,7 @@ def h_seams(device, frames3, streams3) -> tuple[dict, set]:
                     stream, t, h, w, cfg, rank=r, world=world, device=device)
                 ins = shard_decode.shard_stream_inputs(
                     stream, lo * per_unit, hi * per_unit, cfg.block_size,
-                    device=device)[:5]
+                    device=device)
                 plain = (decode_cuda.decode_images_plain(
                     *ins, num_frames=1, bh=hi - lo, bw=per_unit,
                     delta=True)[0] if cfg.block_dim == 8 else
@@ -2185,7 +2181,7 @@ def h_seams(device, frames3, streams3) -> tuple[dict, set]:
             for r in range(world):
                 lo, hi = shard_decode.block_range(r, world, nb)
                 plain = decode_cuda.decode_blocks_plain(
-                    f.words, f.offsets[lo:hi], f.symbols, f.bounds, f.adj,
+                    f.words, f.offsets[lo:hi], f.code,
                     num_steps=64, delta=True)
                 worst["decode_blocks"] = max(worst["decode_blocks"], max_err(
                     parts[r][i, : hi - lo], plain))
@@ -2262,8 +2258,7 @@ def phase_h(device, card: str, frames3, streams3) -> tuple[dict, dict, dict]:
         hosts = {n: native.encode_symbols(p)
                  for n, p in (("payload", payload), ("tailed", tailed))}
         prep16 = fs.prepare_shared(stream16, t, h, w, cfg16, device=device)
-        args16 = (prep16.words, prep16.offsets, prep16.symbols, prep16.bounds,
-                  prep16.adj)
+        args16 = (prep16.words, prep16.offsets, prep16.code)
         prep3 = fs.prepare_batch(streams3, h, w, device=device)
         body = torch.from_numpy(payload.reshape(-1, 64)).to(device)
         widths, codes = encode_cuda.canonical_table(payload)
@@ -2282,9 +2277,8 @@ def phase_h(device, card: str, frames3, streams3) -> tuple[dict, dict, dict]:
               "phase H decode_shared_sharded: differs from the frames or "
               "the single-device decode")
         out = shard_decode.decode_blocks_sharded(
-            *args16, mesh=m, num_steps=256, table=prep16.table)
-        single = decode_cuda.decode_blocks(*args16, num_steps=256, delta=True,
-                                           table=prep16.table)
+            *args16, mesh=m, num_steps=256)
+        single = decode_cuda.decode_blocks(*args16, num_steps=256, delta=True)
         check(torch.equal(out, single) and np.array_equal(
             blocks.blocks_to_image_torch(out.view(t, -1, 256), h, w, 16)
             .cpu().numpy(), synth),
@@ -2332,14 +2326,14 @@ def phase_h(device, card: str, frames3, streams3) -> tuple[dict, dict, dict]:
         errs = dict(seams, encode_rows=max_err(
             rows, encode_cuda.encode_rows_plain(body, table, wmax=wmax)))
         check(errs["encode_rows"] == 0, "phase H: B3's rows differ from plain")
-        times = h_timings(device, card, m, m2, stream8, args16, prep16.table,
-                          prep3, payload)
+        times = h_timings(device, card, m, m2, stream8, args16, prep3,
+                          payload)
     finally:
         dist.destroy_process_group()
     return counts, errs, times
 
 
-def h_timings(device, card: str, m, m2, stream8, args16, table16, prep3,
+def h_timings(device, card: str, m, m2, stream8, args16, prep3,
               payload) -> dict:
     """Phase H's times: each sharded call against its single-device call,
     and the gather, the cross-check and the splice apart."""
@@ -2368,11 +2362,11 @@ def h_timings(device, card: str, m, m2, stream8, args16, table16, prep3,
         "decode_blocks_sharded 16x16": timed(
             "H decode_blocks_sharded 16x16 (B2, all-gather)", lambda _: (
                 shard_decode.decode_blocks_sharded(
-                    *args16, mesh=m, num_steps=256, table=table16)),
+                    *args16, mesh=m, num_steps=256)),
             [0], card, size),
         "decode_blocks 16x16": timed(
             "H decode_blocks 16x16 (B2)", lambda _: decode_cuda.decode_blocks(
-                *args16, num_steps=256, delta=True, table=table16),
+                *args16, num_steps=256, delta=True),
             [0], card, size),
         "decode_batch_sharded": timed(
             "H decode_batch_sharded MHTS (B2 x 30, all-gather)",
@@ -2642,7 +2636,7 @@ def phase_i(device, blob1: bytes) -> tuple[dict, dict, dict]:
         prep = fs.prepare_shared(bad_segs[1][0], ft1, h, w, cfg8,
                                  device=device, check=True)
         _, end = decode_cuda.decode_images_plain(
-            prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj,
+            prep.words, prep.offsets, prep.code,
             num_frames=ft1, bh=prep.bh, bw=prep.bw, delta=True,
             emit_end=True)
         err = decode_cuda.check_block_ends(end, prep.end_targets).cpu().numpy()
@@ -3179,9 +3173,9 @@ def phase_k(device) -> tuple[dict, dict, dict]:
                   f"differs from plain by {err}")
         stream16, t16 = fs.read_segmented(blob16)[0][0]
         prep = fs.prepare_shared(stream16, t16, h, w, cfg16, device=device)
-        args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+        args = (prep.words, prep.offsets, prep.code)
         geo = dict(num_steps=256, delta=True, emit_end=True)
-        out, end = decode_cuda.decode_blocks(*args, **geo, table=prep.table)
+        out, end = decode_cuda.decode_blocks(*args, **geo)
         pout, pend = decode_cuda.decode_blocks_plain(*args, **geo)
         err = max(int((out.int() - pout.int()).abs().max()),
                   int((end - pend).abs().max()))
@@ -3616,10 +3610,10 @@ def phase_n(device, card: str) -> tuple[dict, int, dict]:
         prep = fs.prepare_shared(fs.read_shared(blobs[bd, "synthetic"])[0],
                                  t, h, w, cfg, device=device)
         geo = dict(num_steps=bd * bd, delta=True)
-        args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+        args = (prep.words, prep.offsets, prep.code)
 
         def b2(p, geo=geo, args=args):
-            return decode_cuda.decode_blocks(*args, **geo, table=p.table)
+            return decode_cuda.decode_blocks(*args, **geo)
 
         def b2_plain(_p, geo=geo, args=args):
             return decode_cuda.decode_blocks_plain(*args, **geo)
@@ -3849,13 +3843,13 @@ def report_shape(label: str, name: str, prep, num_steps: int = 64) -> dict:
     from metalhuffman_tpu_torch.ops import decode_cuda
 
     nb = prep.offsets.numel()
-    s = decode_cuda.launch_shape(name, prep.words.numel(), nb, prep.table,
+    s = decode_cuda.launch_shape(name, prep.words.numel(), nb, prep.code,
                                  num_steps=num_steps)
     threads = s["grid"] * 256
     print(f"grid {label}: {s['ctas_per_sm']} resident CUDA blocks of 256 per "
           f"SM, grid {s['grid']}, shared memory per CUDA block "
           f"{s['dyn_smem']} B table + {s['static_smem']} B static "
-          f"({prep.table.num_t2} T2 tables of 32 entries); "
+          f"({prep.code.num_t2} T2 tables of 32 entries); "
           f"{s['registers']} registers, {s['local_bytes']} B local "
           f"(spills) per thread; {nb / threads:.3f} blocks per thread, the "
           f"busiest {-(-nb // threads)}")
@@ -3877,7 +3871,7 @@ def timings(device, card: str) -> dict:
     t = FULL[0]
 
     def args(p):
-        return (p.words, p.offsets, p.symbols, p.bounds, p.adj)
+        return (p.words, p.offsets, p.code)
 
     def b1(p):  # the main path's own call
         return fs.decode_shared_step(p, CodecConfig(), raw=True)
@@ -3889,12 +3883,11 @@ def timings(device, card: str) -> dict:
     def b1_end(p):
         return decode_cuda.decode_images(
             *args(p), num_frames=t, bh=p.bh, bw=p.bw, delta=True,
-            emit_end=True, table=p.table)
+            emit_end=True)
 
     def b1_no_end(p):
         return decode_cuda.decode_images(
-            *args(p), num_frames=t, bh=p.bh, bw=p.bw, delta=True,
-            table=p.table)
+            *args(p), num_frames=t, bh=p.bh, bw=p.bw, delta=True)
 
     # the kernel against its plain version at the main path's own shape
     # (1,474,560 blocks, bit offsets near 4.1e8)
@@ -3927,7 +3920,7 @@ def timings(device, card: str) -> dict:
 
         def b2(p, bd=bd):
             return decode_cuda.decode_blocks(*args(p), num_steps=bd * bd,
-                                             delta=True, table=p.table)
+                                             delta=True)
 
         def b2_plain(p, bd=bd):
             return decode_cuda.decode_blocks_plain(*args(p), num_steps=bd * bd,
@@ -4213,8 +4206,7 @@ def probe_batches(frames: np.ndarray, device):
         check(np.array_equal(stream.widths, widths),
               "timed probe inputs: the table differs between rotations")
         preps.append(fs.prepare_shared(stream, *FULL, device=device))
-    shared = probe_tables(preps[0], widths, device)
-    return preps, [{**shared, "table": p.table} for p in preps]
+    return preps, [probe_tables(widths, device)] * len(preps)
 
 
 HOST_CALLS = 50  # B1 calls enqueued back to back per host-clock round
@@ -4239,14 +4231,13 @@ def wrapper_host_us(p, card: str) -> dict:
                       device=p.words.device)
     entry = _build.lib("decode_images").mht_decode_images
     c_args = (p.words.data_ptr(), p.words.numel(), p.offsets.data_ptr(),
-              p.offsets.numel(), p.bh, p.bw, p.table.entries.data_ptr(),
-              p.table.entries.numel(), int(p.table.t2_in_smem), 1,
+              p.offsets.numel(), p.bh, p.bw, p.code.entries.data_ptr(),
+              p.code.entries.numel(), int(p.code.t2_in_smem), 1,
               out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
 
     def wrapper():
-        decode_cuda.decode_images(p.words, p.offsets, p.symbols, p.bounds,
-                                  p.adj, num_frames=t, bh=p.bh, bw=p.bw,
-                                  delta=True, table=p.table)
+        decode_cuda.decode_images(p.words, p.offsets, p.code, num_frames=t,
+                                  bh=p.bh, bw=p.bw, delta=True)
 
     def c_entry():
         check(entry(*c_args) == 0, "host timing: the C entry failed")
@@ -4296,12 +4287,12 @@ def probe_timings(device, card: str) -> dict:
 
         def args(i):
             p = preps[i]
-            return ((p.words, p.offsets, p.symbols, p.bounds, p.adj),
+            return ((p.words, p.offsets, p.code),
                     dict(num_frames=t, bh=p.bh, bw=p.bw))
 
         def b1_plain(p):
             return decode_cuda.decode_images_plain(
-                p.words, p.offsets, p.symbols, p.bounds, p.adj,
+                p.words, p.offsets, p.code,
                 num_frames=t, bh=p.bh, bw=p.bw, delta=True)
 
         def variant(v):
@@ -4313,13 +4304,12 @@ def probe_timings(device, card: str) -> dict:
 
         def b1(i):
             a, g = args(i)
-            return decode_cuda.decode_images(*a, **g, delta=True,
-                                             table=preps[i].table)
+            return decode_cuda.decode_images(*a, **g, delta=True)
 
         def s1(prefetch):
             def run(i):
                 a, g = args(i)
-                return strips.decode_strips(*a, **g, table=preps[i].table,
+                return strips.decode_strips(*a, **g,
                                             prefetch=prefetch)
             return run
 
@@ -4336,11 +4326,11 @@ def probe_timings(device, card: str) -> dict:
         p0, n0 = preps[0], preps[0].offsets.numel()
         report_shape(f"B1 {content} 30x2048x1536", "decode_images", p0)
         shapes = {"B1": decode_cuda.launch_shape(
-                      "decode_images", p0.words.numel(), n0, p0.table),
-                  **{f"S1 {f}": strips.launch_shape(n0, p0.table, pf)
+                      "decode_images", p0.words.numel(), n0, p0.code),
+                  **{f"S1 {f}": strips.launch_shape(n0, p0.code, pf)
                      for f, pf in strips.FORMS.items()},
                   **{f"S2 {v}": ablate_decode.launch_shape(
-                      v, n0, p0.bounds, p0.adj, **tabs[0])
+                      v, n0, p0.code, **tabs[0])
                      for v in ablate_decode.VARIANTS}}
         spans = strips.cta_spans(p0.offsets, p0.words.numel())
         span_bytes = 4 * (spans[:, 1] - spans[:, 0]).double()
@@ -4348,8 +4338,9 @@ def probe_timings(device, card: str) -> dict:
               f"{', '.join(ablate_decode.VARIANTS)}"
               f" == plain on {VARIANTS} staged {content} 30x2048x1536 inputs "
               f"(T2 tables {tabs[0]['lut'].num_t2} at 8/8, "
-              f"{p0.table.num_t2} at 11/5; "
-              f"{len(ablate_decode.pruned_terms(p0.bounds, p0.adj)[0])}"
+              f"{p0.code.num_t2} at 11/5; "
+              f"{len(ablate_decode.pruned_terms(p0.code.bounds,
+                                                p0.code.adj)[0])}"
               f" compare terms; S1's code spans mean {span_bytes.mean():.0f} "
               f"B, max {span_bytes.max():.0f} B)")
         times = measure_interleaved(fns, len(preps))
@@ -4476,12 +4467,13 @@ def ab(baseline: Path, device, card: str) -> None:
             if lut:
                 k1 = ((decode_cuda.LUT_K1,)
                       if takes_k1 and which == "baseline" else ())
-                tab = (p.table.entries.data_ptr(), p.table.entries.numel(),
-                       *k1, int(p.table.t2_in_smem), 1,
+                tab = (p.code.entries.data_ptr(), p.code.entries.numel(),
+                       *k1, int(p.code.t2_in_smem), 1,
                        outs[which].data_ptr(), None)
             else:
-                tab = ((ctypes.c_uint32 * 16)(*p.bounds),
-                       (ctypes.c_int32 * 16)(*p.adj), p.symbols.data_ptr(), 1,
+                tab = ((ctypes.c_uint32 * 16)(*p.code.bounds),
+                       (ctypes.c_int32 * 16)(*p.code.adj),
+                       p.code.symbols.data_ptr(), 1,
                        outs[which].data_ptr(), *([None] if takes_end else []))
             err = fns[which](*geo, *tab, stream)
             check(err == 0, f"A/B {which}: CUDA error {err}")

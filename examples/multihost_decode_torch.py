@@ -79,9 +79,8 @@ def main(argv=None) -> dict:
         enc = native.encode_symbols(data, 64)
 
         m = multihost.global_mesh(device=dev.type)
-        *inputs, table = multihost.shard_global_inputs(enc, mesh=m,
-                                                       device=dev)
-        decoded = multihost.decode_blocks_multihost(*inputs, table=table)
+        inputs = multihost.shard_global_inputs(enc, mesh=m, device=dev)
+        decoded = multihost.decode_blocks_multihost(*inputs)
         out = multihost.gather_blocks(decoded, enc.block_offsets.size,
                                       m.get_group()).cpu().numpy()
         if not np.array_equal(out, blk):

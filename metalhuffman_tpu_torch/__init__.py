@@ -141,23 +141,17 @@ def decode_video(blob: bytes, device="cuda"):
     ``device`` and fetched once.
     """
     from .models import frame_stream
-    from .models.config import CodecConfig
 
     if blob[:4] == b"MHVT":
         from .models import temporal
 
         return temporal.decode_temporal_video(blob, device)
-    if blob[:4] == frame_stream.SEGMENTED_MAGIC:
-        segs, _t, h, w, bd, delta = frame_stream.read_segmented(blob)
-        cfg = CodecConfig(block_dim=bd, delta=delta,
-                          delta2d=segs[0][0].predictor == "2d")
+    segs, t, h, w, cfg = frame_stream.read_video(blob)
+    if len(segs) > 1:
         frames = frame_stream.decode_frames_segmented(segs, h, w, cfg,
                                                       device=device)
     else:
-        stream, t, h, w, bd, delta = frame_stream.read_shared(blob)
-        cfg = CodecConfig(block_dim=bd, delta=delta,
-                          delta2d=stream.predictor == "2d")
         frames = frame_stream.decode_frames_shared(
-            stream, t, h, w, cfg, device=device).cpu().numpy()
+            segs[0][0], t, h, w, cfg, device=device).cpu().numpy()
     frame_stream.verify_source_crc32(frames, frame_stream.source_crc32(blob))
     return frames

@@ -20,8 +20,7 @@ block size a container records, 1x1 to 255x255.
   ``decode_video_region``.
 - MHTS: one MHT1 record, and so one table, per frame (``write_stream``,
   ``read_stream``, ``iter_stream_frames``); ``decode_batch`` launches the
-  kernel once per frame, each with its frame's lookup table, into one
-  output.
+  kernel once per frame, each with its frame's code, into one output.
 - Multi-GPU decode over a process group (``decode_shared_sharded`` with
   ``gather_shared``, ``decode_batch_sharded``): each rank decodes a
   contiguous range, then one all-gather (``parallel.shard_decode``).
@@ -259,11 +258,8 @@ class PreparedShared:
     words: torch.Tensor
     #: (T*bh*bw,) int32 block bit offsets into ``words`` (u32 bits)
     offsets: torch.Tensor
-    symbols: torch.Tensor  # (256,) uint8 canonical symbol order
-    bounds: tuple  # (16,) interval bounds
-    adj: tuple  # (16,) cumulative adj per code width
-    #: the code's lookup table, the kernels' form of the table above
-    table: decode_cuda.LookupTable
+    #: the stream's code, the interval table and the kernels' lookup table
+    code: decode_cuda.Code
     #: (T, bh*bw) uint8 zero-init root bytes; None unless the stream has them
     init_grid: torch.Tensor | None = None
     #: (T*bh*bw,) int32 expected row-local end bits in stream order (-1 =
@@ -297,9 +293,9 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
                    check: bool = False) -> PreparedShared | PreparedNative:
     """Stage a shared-table stream's decode inputs on ``device``: the code
     words its blocks reach (all of them for a whole stream, a frame range's
-    own for a :func:`frame_slice` view), the offsets, the interval table
-    (the plain versions') and the lookup table (the kernels'); with
-    ``check`` also the targets of :func:`decode_shared_step_checked`.
+    own for a :func:`frame_slice` view), the offsets and the code
+    (``decode_cuda.stage_code``); with ``check`` also the targets of
+    :func:`decode_shared_step_checked`.
     ``device="native"`` stages nothing and refuses ``check``."""
     cfg = config or CodecConfig()
     bh, bw = blocks.block_grid(height, width, cfg.block_dim)
@@ -313,9 +309,8 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
             raise ValueError(NATIVE_CHECK_ERROR)
         return PreparedNative(stream, num_frames, height, width,
                               cfg.block_dim)
-    meta = decode_cuda.canonical_meta(stream.widths)
-    code, offsets = decode_cuda.stream_window(stream, cfg.block_size)
-    words, _ = decode_cuda.stage_words([code], device)
+    window, offsets = decode_cuda.stream_window(stream, cfg.block_size)
+    words, _ = decode_cuda.stage_words([window], device)
     init_grid = None
     if stream.block_init is not None:
         init_grid = torch.from_numpy(
@@ -332,9 +327,8 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
     return PreparedShared(
         num_frames, height, width, cfg.block_dim, bh, bw, words,
         torch.from_numpy(offsets.view(np.int32)).to(device),
-        torch.from_numpy(meta.symbols).to(device),
-        meta.bounds, meta.adj, decode_cuda.lookup_table(meta, device),
-        init_grid, end_targets, last_window)
+        decode_cuda.stage_code(stream.widths, device), init_grid, end_targets,
+        last_window)
 
 
 def _decode_native(prep: PreparedNative, cfg: CodecConfig) -> np.ndarray:
@@ -353,6 +347,71 @@ def _decode_native(prep: PreparedNative, cfg: CodecConfig) -> np.ndarray:
     return np.ascontiguousarray(img[:, : prep.height, : prep.width])
 
 
+def _images(cfg: CodecConfig, grid: tuple[int, int, int]):
+    """The grid of (frames, block rows, block columns) that B1 writes a
+    launch's blocks on at their image positions, or None where B2 decodes
+    them: B1 takes 8x8 blocks, B2 every other size."""
+    return grid if cfg.block_dim == 8 else None
+
+
+def _precoder(cfg: CodecConfig) -> tuple[bool, bool]:
+    """The (delta, delta2d) that a decode kernel undoes under ``cfg``:
+    delta2d replaces the 1-D delta in the symbol chain, and the kernels
+    reconstruct it at 8x8 only (:func:`launch_frames` runs it after B2 at
+    other sizes)."""
+    return cfg.delta and not cfg.delta2d, cfg.delta2d and cfg.block_dim == 8
+
+
+def launch_staged(words: torch.Tensor, offsets: torch.Tensor,
+                  code: decode_cuda.Code, cfg: CodecConfig, images=None, *,
+                  emit_end: bool = False, out: torch.Tensor | None = None):
+    """One decode launch over staged blocks: B1 into (T, bh*8, bw*8) images
+    on ``images`` (:func:`_images`), else B2 into (nb, block_size) blocks in
+    the order of ``offsets``; with ``emit_end`` also the end bits. ``out``,
+    a contiguous uint8 tensor of the output's size in any shape, takes the
+    output."""
+    delta, delta2d = _precoder(cfg)
+    if images is not None:
+        t, bh, bw = images
+        return decode_cuda.decode_images(
+            words, offsets, code, num_frames=t, bh=bh, bw=bw, delta=delta,
+            delta2d=delta2d, emit_end=emit_end,
+            out=None if out is None else out.view(t, bh * 8, bw * 8))
+    return decode_cuda.decode_blocks(
+        words, offsets, code, num_steps=cfg.block_size, delta=delta,
+        delta2d=delta2d, emit_end=emit_end,
+        out=None if out is None else out.view(-1, cfg.block_size))
+
+
+def launch_frames(out: torch.Tensor, cfg: CodecConfig, images, size=None,
+                  init: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`launch_staged`'s output on ``images`` -> frames: the delta2d
+    post-pass after B2 off 8x8, the fold of the zero-init root bytes
+    ``init`` (one a block, in the kernel's block order) on B1's (T, bh*8,
+    bw*8) images or on B2's blocks (a contiguous tensor of them, in any
+    shape), then with ``size`` = (T, H, W) the images cropped or the blocks
+    laid out as frames, a view. Without ``size`` the blocks come back in
+    ``out``'s shape."""
+    if images is not None:
+        if init is not None:
+            # adding each block's root byte to the whole block (mod 256)
+            # equals seeding the decoder's accumulator with it; done in
+            # place on the fresh kernel output
+            t, bh, bw = images
+            out.view(t, bh, 8, bw, 8).add_(init.view(t, bh, 1, bw, 1))
+        return out if size is None else out[:, : size[1], : size[2]]
+    bd, bs = cfg.block_dim, cfg.block_size
+    if cfg.delta2d and bd != 8:
+        out = delta_mod.delta2d_decode_blocks(out.view(-1, bs), bd).view(
+            out.shape)
+    if init is not None:
+        out.view(-1, bs).add_(init.reshape(-1, 1))  # the fold, on fresh blocks
+    if size is None:
+        return out
+    t, h, w = size
+    return blocks.blocks_to_image_torch(out.view(t, -1, bs), h, w, bd)
+
+
 def _decode(prep: PreparedShared | PreparedNative, cfg: CodecConfig,
             raw: bool, emit_end: bool):
     """One launch over the staged batch -> (result, end bits or None)."""
@@ -361,44 +420,23 @@ def _decode(prep: PreparedShared | PreparedNative, cfg: CodecConfig,
                          f"config has {cfg.block_dim}")
     if isinstance(prep, PreparedNative):
         return torch.from_numpy(_decode_native(prep, cfg)), None
-    # delta2d replaces the 1-D delta in the symbol chain
-    kdelta = cfg.delta and not cfg.delta2d
-    t, bh, bw, bd = prep.num_frames, prep.bh, prep.bw, prep.block_dim
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    t = prep.num_frames
+    images = _images(cfg, (t, prep.bh, prep.bw))
+    if images is not None and raw and prep.init_grid is not None:
+        raise ValueError(
+            "raw output cannot carry the zero-init root fold; "
+            "decode zero-init streams with raw=False")
+    if images is None:
+        mark("blocks")
+    out = launch_staged(prep.words, prep.offsets, prep.code, cfg, images,
+                        emit_end=emit_end)
     end = None
-    table = prep.table
-    if bd == 8:
-        if raw and prep.init_grid is not None:
-            raise ValueError(
-                "raw output cannot carry the zero-init root fold; "
-                "decode zero-init streams with raw=False")
-        out = decode_cuda.decode_images(
-            *args, num_frames=t, bh=bh, bw=bw, delta=kdelta,
-            delta2d=cfg.delta2d, emit_end=emit_end, table=table)
-        if emit_end:
-            out, end = out
-        if raw:
-            return out, end
-        if prep.init_grid is not None:
-            # adding each block's root byte to the whole block (mod 256)
-            # equals seeding the decoder's accumulator with it; done in
-            # place on the fresh kernel output
-            out.view(t, bh, 8, bw, 8).add_(prep.init_grid.view(t, bh, 1, bw, 1))
-        return out[:, : prep.height, : prep.width].contiguous(), end
-    # other block sizes: the packed-block kernel, then a torch relayout
-    mark("blocks")
-    blk = decode_cuda.decode_blocks(
-        *args, num_steps=bd * bd, delta=kdelta, emit_end=emit_end,
-        table=table)
     if emit_end:
-        blk, end = blk
-    if cfg.delta2d:  # the in-kernel 2-D reconstruction is 8x8-specific
-        blk = delta_mod.delta2d_decode_blocks(blk, bd)
-    if prep.init_grid is not None:
-        blk.add_(prep.init_grid.view(-1, 1))  # the fold, on fresh blocks
-    img = blocks.blocks_to_image_torch(
-        blk.view(t, bh * bw, bd * bd), prep.height, prep.width, bd)
-    return img.contiguous(), end
+        out, end = out
+    if images is not None and raw:
+        return out, end
+    return launch_frames(out, cfg, images, (t, prep.height, prep.width),
+                         prep.init_grid).contiguous(), end
 
 
 def decode_shared_step(prep: PreparedShared, config: CodecConfig | None = None,
@@ -690,9 +728,9 @@ class StreamingDecoder:
         prep = prepare_shared(stream, num_frames, height, width, self.config,
                               device=self.device)
         # the raw 8x8 output skips the crop copy, but cannot carry the
-        # zero-init root fold: zero-init batches take the image form
-        raw = (isinstance(prep, PreparedShared) and prep.block_dim == 8
-               and prep.init_grid is None)
+        # zero-init root fold: zero-init batches take the image form (other
+        # sizes have only it, which frames_from_raw leaves as it is)
+        raw = isinstance(prep, PreparedShared) and prep.init_grid is None
         return prep, decode_shared_step(prep, self.config, raw=raw), raw
 
     def result(self, handle) -> np.ndarray:
@@ -750,18 +788,29 @@ def _container_config(config: CodecConfig | None, block_dim: int,
                                delta=delta, delta2d=predictor == "2d")
 
 
+def read_video(data: bytes, config: CodecConfig | None = None):
+    """Parse an MHTV or MHV2 container -> (segments [(stream, t)], frames,
+    height, width, config): an MHTV is one segment, and ``config`` is the
+    header's block_dim and precoder over the caller's ``config``."""
+    if data[:4] == SHARED_MAGIC:
+        stream, t, h, w, bd, delta = read_shared(data)
+        segs = [(stream, t)]
+    elif data[:4] == SEGMENTED_MAGIC:
+        segs, t, h, w, bd, delta = read_segmented(data)
+    else:
+        raise ValueError("not an MHTV/MHV2 container")
+    return segs, t, h, w, _container_config(config, bd, delta,
+                                            segs[0][0].predictor)
+
+
 def parse_range_container(data: bytes):
     """Parse an MHTV/MHV2/MHTS blob once for repeated range decodes; returns
     an opaque handle for :func:`decode_range_parsed`."""
-    if data[:4] == SHARED_MAGIC:
-        stream, t, h, w, bd, delta = read_shared(data)
-        return ("shared", ([(stream, t)], t, h, w, bd, delta),
-                read_frame_crcs(data))
-    if data[:4] == SEGMENTED_MAGIC:
-        return ("segmented", read_segmented(data), read_frame_crcs(data))
     if data[:4] == STREAM_MAGIC:
         return ("stream", read_stream(data), read_stream_crcs(data))
-    raise ValueError("not an MHTV/MHV2/MHTS container")
+    if data[:4] not in (SHARED_MAGIC, SEGMENTED_MAGIC):
+        raise ValueError("not an MHTV/MHV2/MHTS container")
+    return ("segments", read_video(data), read_frame_crcs(data))
 
 
 def decode_range(data: bytes, a: int, b: int,
@@ -831,10 +880,12 @@ def decode_range_parsed(parsed, a: int, b: int,
                             "the stream is corrupt")
             outs.append(img)
         return (np.stack(outs) if to_host else torch.stack(outs)), h, w
-    segs, t, h, w, bd, delta = payload
+    segs, t, h, w, cfg = payload
     if not 0 <= a < b <= t:
         raise ValueError(f"frames [{a}, {b}) out of range ({t} frames)")
-    cfg = _container_config(config, bd, delta, segs[0][0].predictor)
+    if config is not None:
+        cfg = _container_config(config, cfg.block_dim, cfg.delta,
+                                segs[0][0].predictor)
     outs, base = [], 0
     for stream, ft in segs:  # a range may straddle segments
         lo, hi = max(a, base), min(b, base + ft)
@@ -869,14 +920,7 @@ def decode_container_device(data: bytes, config: CodecConfig | None = None,
     if native.is_native(device):
         raise ValueError(
             "decode_container_device needs a torch device, not 'native'")
-    if data[:4] == SHARED_MAGIC:
-        stream, t, h, w, bd, delta = read_shared(data)
-        segs = [(stream, t)]
-    elif data[:4] == SEGMENTED_MAGIC:
-        segs, t, h, w, bd, delta = read_segmented(data)
-    else:
-        raise ValueError("not an MHTV/MHV2 container")
-    cfg = _container_config(config, bd, delta, segs[0][0].predictor)
+    segs, _t, h, w, cfg = read_video(data, config)
     outs = [decode_frames_shared(s, ft, h, w, cfg, device=device)
             for s, ft in segs]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -946,18 +990,12 @@ def decode_video_region(data: bytes, a: int, b: int, y0: int, x0: int,
                 f"frames [{a}, {b}) out of range "
                 f"({len(outs) + a} frames reachable)")
         return np.stack(outs)
-    if data[:4] == SHARED_MAGIC:
-        stream, t, h, w, bd, delta = read_shared(data)
-        segs = [(stream, t)]
-    elif data[:4] == SEGMENTED_MAGIC:
-        segs, t, h, w, bd, delta = read_segmented(data)
-    else:
-        raise ValueError("not an MHTV/MHV2 container")
+    segs, t, h, w, cfg = read_video(data, config)
     if not 0 <= a < b <= t:
         raise ValueError(f"frames [{a}, {b}) out of range ({t} frames)")
     if not (0 <= y0 and y0 + rh <= h and 0 <= x0 and x0 + rw <= w):
         raise ValueError("region out of bounds")
-    cfg = _container_config(config, bd, delta, segs[0][0].predictor)
+    bd = cfg.block_dim
     _bh, bw = blocks.block_grid(h, w, bd)
     per = _bh * bw
     by0, bx0 = y0 // bd, x0 // bd
@@ -1124,8 +1162,8 @@ class PreparedBatch:
     """An MHTS batch staged on one device, one table per frame.
 
     ``frames`` holds a one-frame :class:`PreparedShared` per frame, whose
-    tensors are views of batch-wide ones (words, offsets, symbols, lookup
-    tables, root bytes).
+    tensors are views of batch-wide ones (words, offsets, codes, root
+    bytes).
     """
 
     height: int
@@ -1144,9 +1182,9 @@ def prepare_batch(streams: list[container.EncodedStream], height: int,
                   device="cuda") -> PreparedBatch:
     """Stage a batch of same-geometry streams (an MHTS clip) on ``device``.
 
-    Each stream keeps its own table: its lookup table is built on the host
-    (``decode_cuda.lookup_table``'s entries, cached for the last 32 codes)
-    and staged beside the others.
+    Each stream keeps its own code (``decode_cuda.stage_codes``, whose
+    lookup entries are cached for the last 32 codes), staged beside the
+    others.
     """
     cfg = config or CodecConfig()
     if not streams:
@@ -1161,36 +1199,26 @@ def prepare_batch(streams: list[container.EncodedStream], height: int,
         if s.block_offsets.size != bh * bw:
             raise ValueError(f"a stream has {s.block_offsets.size} blocks, "
                              f"a {height}x{width} frame {bh * bw}")
-    metas = [decode_cuda.canonical_meta(s.widths) for s in streams]
     windows = [decode_cuda.stream_window(s, cfg.block_size) for s in streams]
-    entries = [decode_cuda.lookup_entries(meta) for meta in metas]
-    ent_at = np.cumsum([0] + [e.size for e in entries])
-
-    def up(arrays):
-        return torch.from_numpy(np.concatenate(arrays)).to(device)
-
     words, words_at = decode_cuda.stage_words([c for c, _ in windows], device)
     words_at.append(words.numel())
-    offsets = up([o.view(np.int32) for _, o in windows])
-    symbols = up([meta.symbols for meta in metas])
-    # every table is a whole number of 64-byte rows of 32 entries, so each
-    # view keeps the 16-byte alignment the kernels load it with
-    tables = up([e.view(np.int16) for e in entries])
+    offsets = torch.from_numpy(np.concatenate(
+        [o.view(np.int32) for _, o in windows])).to(device)
+    codes = decode_cuda.stage_codes([s.widths for s in streams], device)
     nb = bh * bw
     init = None
     if any(s.block_init is not None for s in streams):
         # a frame without root bytes folds zeros
-        init = up([np.zeros(nb, np.uint8) if s.block_init is None
-                   else s.block_init.astype(np.uint8) for s in streams]
-                  ).view(len(streams), nb)
+        init = torch.from_numpy(np.concatenate(
+            [np.zeros(nb, np.uint8) if s.block_init is None
+             else s.block_init.astype(np.uint8) for s in streams])
+        ).to(device).view(len(streams), nb)
     frames = tuple(
         PreparedShared(
             1, height, width, cfg.block_dim, bh, bw,
             words[words_at[i] : words_at[i + 1]], offsets[i * nb : (i + 1) * nb],
-            symbols[256 * i : 256 * (i + 1)], meta.bounds, meta.adj,
-            decode_cuda.LookupTable(tables[ent_at[i] : ent_at[i + 1]]),
-            None if init is None else init[i : i + 1])
-        for i, meta in enumerate(metas))
+            code, None if init is None else init[i : i + 1])
+        for i, code in enumerate(codes))
     return PreparedBatch(height, width, cfg.block_dim, bh, bw, frames, init)
 
 
@@ -1198,9 +1226,9 @@ def decode_batch(prep: PreparedBatch, config: CodecConfig | None = None
                  ) -> torch.Tensor:
     """Decode a staged batch -> (T, H, W) uint8 tensor on its device.
 
-    One launch per frame, each with its frame's lookup table, all writing
-    into one output: B1 into its frame of the (T, bh*8, bw*8) image at 8x8,
-    B2 into its frame's rows of one (T*nb, block_size) block array (then one
+    One launch per frame, each with its frame's code, all writing into one
+    output: B1 into its frame of the (T, bh*8, bw*8) image at 8x8, B2 into
+    its frame's rows of one (T*nb, block_size) block array (then one
     relayout) at other sizes.
     """
     cfg = config or CodecConfig()
@@ -1208,30 +1236,15 @@ def decode_batch(prep: PreparedBatch, config: CodecConfig | None = None
         raise ValueError(f"batch was staged for block_dim {prep.block_dim}, "
                          f"config has {cfg.block_dim}")
     t, bh, bw, bd = len(prep.frames), prep.bh, prep.bw, prep.block_dim
-    nb, bs = bh * bw, bd * bd
-    kdelta = cfg.delta and not cfg.delta2d
-    dev = prep.frames[0].words.device
-    if bd == 8:
-        out = torch.empty((t, bh * 8, bw * 8), dtype=torch.uint8, device=dev)
-        for i, f in enumerate(prep.frames):
-            decode_cuda.decode_images(
-                f.words, f.offsets, f.symbols, f.bounds, f.adj, num_frames=1,
-                bh=bh, bw=bw, delta=kdelta, delta2d=cfg.delta2d,
-                table=f.table, out=out[i : i + 1])
-        if prep.init_b is not None:  # the zero-init fold
-            out.view(t, bh, 8, bw, 8).add_(prep.init_b.view(t, bh, 1, bw, 1))
-        return out[:, : prep.height, : prep.width].contiguous()
-    blk = torch.empty((t * nb, bs), dtype=torch.uint8, device=dev)
+    # a frame's B2 blocks take the bytes of its padded image, B1's output
+    out = torch.empty((t, bh * bd, bw * bd), dtype=torch.uint8,
+                      device=prep.frames[0].words.device)
+    frame = _images(cfg, (1, bh, bw))
     for i, f in enumerate(prep.frames):
-        decode_cuda.decode_blocks(
-            f.words, f.offsets, f.symbols, f.bounds, f.adj, num_steps=bs,
-            delta=kdelta, table=f.table, out=blk[i * nb : (i + 1) * nb])
-    if cfg.delta2d:  # the in-kernel 2-D reconstruction is 8x8-specific
-        blk = delta_mod.delta2d_decode_blocks(blk, bd)
-    if prep.init_b is not None:
-        blk.add_(prep.init_b.view(-1, 1))  # the zero-init fold
-    return blocks.blocks_to_image_torch(
-        blk.view(t, nb, bs), prep.height, prep.width, bd).contiguous()
+        launch_staged(f.words, f.offsets, f.code, cfg, frame, out=out[i])
+    return launch_frames(out, cfg, _images(cfg, (t, bh, bw)),
+                         (t, prep.height, prep.width),
+                         prep.init_b).contiguous()
 
 
 # -- multi-GPU decode ----------------------------------------------------------
@@ -1244,7 +1257,7 @@ def _shared_grid(num_frames: int, height: int, width: int, cfg: CodecConfig):
     """(units a rank's range counts, blocks per unit): block rows at 8x8
     (B1 writes whole image rows), blocks at other sizes."""
     bh, bw = blocks.block_grid(height, width, cfg.block_dim)
-    if cfg.block_dim == 8:
+    if _images(cfg, (num_frames, bh, bw)) is not None:
         return num_frames * bh, bw
     return num_frames * bh * bw, 1
 
@@ -1265,19 +1278,12 @@ def decode_shared_local(stream: container.EncodedStream, num_frames: int,
     if cfg.delta2d and cfg.block_dim != 8:
         raise ValueError("sharded delta2d decode needs 8x8 blocks "
                          "(the in-kernel reconstruction)")
-    kdelta = cfg.delta and not cfg.delta2d
     units, per_unit = _shared_grid(num_frames, height, width, cfg)
     lo, hi = shard_decode.block_range(rank, world, units)
-    *args, table = shard_decode.shard_stream_inputs(
+    staged = shard_decode.shard_stream_inputs(
         stream, lo * per_unit, hi * per_unit, cfg.block_size, device=device)
-    if cfg.block_dim == 8:
-        local = decode_cuda.decode_images(
-            *args, num_frames=1, bh=hi - lo, bw=per_unit, delta=kdelta,
-            delta2d=cfg.delta2d, table=table)[0]
-    else:
-        local = decode_cuda.decode_blocks(
-            *args, num_steps=cfg.block_size, delta=kdelta, table=table)
-    return local, (lo, hi)
+    local = launch_staged(*staged, cfg, _images(cfg, (1, hi - lo, per_unit)))
+    return local.view(-1, local.shape[-1]), (lo, hi)
 
 
 def decode_shared_sharded(stream: container.EncodedStream, num_frames: int,
@@ -1303,13 +1309,13 @@ def _frames_from_units(flat: torch.Tensor, num_frames: int, height: int,
                        width: int, cfg: CodecConfig) -> torch.Tensor:
     """The decoded units of a shared-table batch in stream order, one row
     each (zero rows past the last one allowed) -> the (T, H, W) frames."""
-    bh, bw = blocks.block_grid(height, width, cfg.block_dim)
+    bd = cfg.block_dim
+    bh, bw = blocks.block_grid(height, width, bd)
     units, _ = _shared_grid(num_frames, height, width, cfg)
-    if cfg.block_dim == 8:
-        return flat[:units].view(num_frames, bh * 8, bw * 8)[:, :height, :width]
-    return blocks.blocks_to_image_torch(
-        flat[:units].view(num_frames, bh * bw, cfg.block_size), height, width,
-        cfg.block_dim)
+    # B1's image rows and B2's blocks alike fill the frames' padded images
+    return launch_frames(flat[:units].view(num_frames, bh * bd, bw * bd),
+                         cfg, _images(cfg, (num_frames, bh, bw)),
+                         (num_frames, height, width))
 
 
 def frames_from_shards(parts, num_frames: int, height: int, width: int,
@@ -1341,23 +1347,25 @@ def decode_batch_local(prep: PreparedBatch, config: CodecConfig | None = None,
                        seq: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """The local step of :func:`decode_batch_sharded` for the rank at
     (index, size) ``data`` on the frame axis and ``seq`` on the block axis:
-    B2 on its frames and blocks, each frame with its own table, then the
-    delta2d post-pass and the zero-init fold on them -> (ceil(T / data
-    size), ceil(nb / seq size), block_size) uint8."""
+    B2 on its frames and blocks, each frame with its own code, then the
+    delta2d post-pass off 8x8 and the zero-init fold on them -> (ceil(T /
+    data size), ceil(nb / seq size), block_size) uint8."""
     cfg = config or CodecConfig()
     if cfg.block_dim != prep.block_dim:
         raise ValueError(f"batch was staged for block_dim {prep.block_dim}, "
                          f"config has {cfg.block_dim}")
+    delta, delta2d = _precoder(cfg)
     blk = shard_decode.decode_frames_local(
         prep.frames, data=data, seq=seq, num_steps=cfg.block_size,
-        delta=cfg.delta and not cfg.delta2d)
-    if cfg.delta2d:
-        blk = delta_mod.delta2d_decode_blocks(blk, cfg.block_dim)
+        delta=delta, delta2d=delta2d)
+    init = None
     if prep.init_b is not None:
+        # the rank's roots, zero past its frames and blocks as blk is
         f0, f1 = shard_decode.block_range(*data, len(prep.frames))
         b0, b1 = shard_decode.block_range(*seq, prep.bh * prep.bw)
-        blk[: f1 - f0, : b1 - b0].add_(prep.init_b[f0:f1, b0:b1, None])
-    return blk
+        init = prep.init_b.new_zeros(blk.shape[:2])
+        init[: f1 - f0, : b1 - b0] = prep.init_b[f0:f1, b0:b1]
+    return launch_frames(blk, cfg, None, init=init)
 
 
 def decode_batch_sharded(prep: PreparedBatch, mesh=None,

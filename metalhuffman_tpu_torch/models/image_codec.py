@@ -201,9 +201,8 @@ def _check_selection_ends(stream: container.EncodedStream, sel: np.ndarray,
 
 def stage_selection(stream: container.EncodedStream, sel: np.ndarray, *,
                     device="cuda"):
-    """Stage the inputs of a selection's decode on ``device`` -> ((words,
-    offsets, symbols, bounds, adj), table), the arguments of
-    ``decode_cuda.decode_blocks`` and its lookup table (see
+    """Stage the inputs of a selection's decode on ``device`` -> (words,
+    offsets, code), the arguments of ``decode_cuda.decode_blocks`` (see
     :func:`decode_blocks_selection`)."""
     sub_offsets = stream.block_offsets[np.asarray(sel, np.int64)].astype(
         np.int64)
@@ -215,10 +214,8 @@ def stage_selection(stream: container.EncodedStream, sel: np.ndarray, *,
     words, _ = decode_cuda.stage_words(
         [stream.code_bytes[4 * lo_word : 4 * hi_word]], device)
     offsets = (sub_offsets - 32 * lo_word).astype(np.uint32)
-    meta = decode_cuda.canonical_meta(stream.widths)
-    return ((words, torch.from_numpy(offsets.view(np.int32)).to(device),
-             torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj),
-            decode_cuda.lookup_table(meta, device))
+    return (words, torch.from_numpy(offsets.view(np.int32)).to(device),
+            decode_cuda.stage_code(stream.widths, device))
 
 
 def decode_blocks_selection(stream: container.EncodedStream,
@@ -234,8 +231,8 @@ def decode_blocks_selection(stream: container.EncodedStream,
     selected block's word to the last selected offset plus the largest block
     of the stream (an upper bound on every selected block), then the pad
     words. The slice is word-aligned, so rebasing the offsets by a multiple
-    of 32 bits keeps every ``>> 5`` and ``& 31`` the same. The code's lookup
-    table is staged with them, for the kernel.
+    of 32 bits keeps every ``>> 5`` and ``& 31`` the same. The stream's code
+    is staged with them.
 
     With ``check`` the return is ``(image, err_mask)``, ``err_mask`` an
     (n_sel,) bool numpy array in selection order from the kernel's end bits
@@ -248,24 +245,17 @@ def decode_blocks_selection(stream: container.EncodedStream,
     position: the same check, computed from the other side).
     """
     sel = np.asarray(sel, np.int64)
-    bd = cfg.block_dim
     if native.is_native(device):
         return _decode_selection_native(stream, sel, gh, gw, cfg, check)
-    # delta2d reconstructs in the kernel at 8x8 only
-    in_kernel_d2 = cfg.delta2d and bd == 8
-    staged, table = stage_selection(stream, sel, device=device)
-    blk = decode_cuda.decode_blocks(
-        *staged, num_steps=cfg.block_size,
-        delta=cfg.delta and not cfg.delta2d, delta2d=in_kernel_d2,
-        emit_end=check, table=table)
+    blk = frame_stream.launch_staged(
+        *stage_selection(stream, sel, device=device), cfg, emit_end=check)
     if check:
         blk, end = blk
-    if cfg.delta2d and not in_kernel_d2:
-        blk = delta_mod.delta2d_decode_blocks(blk, bd)
+    init = None
     if stream.block_init is not None:
-        init = torch.from_numpy(stream.block_init[sel].astype(np.uint8))
-        blk.add_(init.to(device).view(-1, 1))  # the zero-init fold
-    img = blocks.blocks_to_image_torch(blk, gh, gw, bd)
+        init = torch.from_numpy(stream.block_init[sel].astype(np.uint8)).to(
+            device)
+    img = frame_stream.launch_frames(blk, cfg, None, (1, gh, gw), init)[0]
     if check:
         return img, _check_selection_ends(stream, sel, end.cpu().numpy(),
                                           cfg.block_size)

@@ -24,13 +24,14 @@ the bits it consumed (the TPU kernel's ``emit_end`` carry), which
 Both kernels decode a symbol with one lookup in a two-level table,
 :func:`lookup_entries`: the interval decode of :func:`_decode_plain` (the TPU
 kernel's arithmetic) tabulated on every 16-bit window, so kernel and plain
-version agree on any stream, malformed ones included. A stream's table is
-built and staged once (:func:`lookup_table`; ``prepare_shared`` and
-``decode_blocks_selection`` do it) and passed to every decode of it.
+version agree on any stream, malformed ones included. A stream's code is
+staged once as a :class:`Code` (:func:`stage_code`, or :func:`stage_codes`
+for a batch of them), which holds both tables, and passed to every decode of
+it.
 
 Each wrapper routes by the device of its tensors alone: CPU tensors take the
-plain PyTorch version (the interval decode; the table is not read), CUDA
-tensors the kernel, which needs the staged table (or an exception), anything
+plain PyTorch version (the interval table of the :class:`Code`; its lookup
+table is not read), CUDA tensors the kernel (the lookup table), anything
 else raises.
 """
 
@@ -151,11 +152,17 @@ def _lookup_entries(bounds: tuple, adj: tuple, symbols: bytes) -> np.ndarray:
 
 
 @dataclass(frozen=True)
-class LookupTable:
-    """A stream's lookup table (:func:`lookup_entries`) staged on a device:
-    the u16 entries as int16 bits, T1 then the secondary tables."""
+class Code:
+    """A stream's code staged for its decode (:func:`stage_code`): the
+    interval table the plain versions read and the lookup table
+    (:func:`lookup_entries`) the kernels read."""
 
-    entries: torch.Tensor  # (2**LUT_K1 + num_t2 * 2**(16-LUT_K1),) int16
+    symbols: torch.Tensor  # (256,) uint8 canonical symbol order
+    bounds: tuple  # (16,) host ints: the interval bounds
+    adj: tuple  # (16,) host ints: the cumulative adj per code width
+    #: (2**LUT_K1 + num_t2 * 2**(16-LUT_K1),) int16, 16-byte aligned: the
+    #: u16 lookup entries as int16 bits, T1 then the secondary tables
+    entries: torch.Tensor
 
     @property
     def num_t2(self) -> int:
@@ -163,6 +170,7 @@ class LookupTable:
 
     @property
     def nbytes(self) -> int:
+        """The lookup table's bytes."""
         return 2 * self.entries.numel()
 
     @property
@@ -171,10 +179,26 @@ class LookupTable:
         return self.nbytes <= T2_SMEM_MAX_BYTES
 
 
-def lookup_table(meta: CanonicalMeta, device) -> LookupTable:
-    """Build ``meta``'s lookup table and stage it on ``device``."""
-    ent = lookup_entries(meta).view(np.int16).copy()
-    return LookupTable(torch.from_numpy(ent).to(device))
+def stage_code(widths: np.ndarray, device) -> Code:
+    """Build the code of a 256-byte width table and stage it on ``device``."""
+    return stage_codes([widths], device)[0]
+
+
+def stage_codes(widths, device) -> list[Code]:
+    """The code of each width table in ``widths``, staged in one copy to
+    ``device`` per kind: each :class:`Code`'s tensors are views of two
+    batch-wide ones, never of :func:`lookup_entries`' cache."""
+    metas = [canonical_meta(w) for w in widths]
+    entries = [lookup_entries(meta) for meta in metas]
+    at = np.cumsum([0] + [e.size for e in entries]).tolist()
+    symbols = torch.from_numpy(
+        np.concatenate([meta.symbols for meta in metas])).to(device)
+    # every table is a whole number of 64-byte rows of 32 entries, so each
+    # view keeps the 16-byte alignment the kernels load it with
+    tables = torch.from_numpy(
+        np.concatenate(entries).view(np.int16)).to(device)
+    return [Code(symbols[256 * i : 256 * (i + 1)], meta.bounds, meta.adj,
+                 tables[at[i] : at[i + 1]]) for i, meta in enumerate(metas)]
 
 
 def stream_window(stream, block_size: int):
@@ -257,9 +281,8 @@ def _mode(delta: bool, delta2d: bool) -> int:
     return 2 if delta2d else int(delta)
 
 
-def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
-                  symbols: torch.Tensor, bounds, adj, num_steps: int,
-                  mode: int):
+def _decode_plain(words: torch.Tensor, offsets: torch.Tensor, code: Code,
+                  num_steps: int, mode: int):
     """Plain PyTorch decode, one lane per block -> ((nb, num_steps) int64
     symbols with the precoder undone, (nb,) int32 row-local end bits).
 
@@ -275,9 +298,9 @@ def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
     last = words.numel() - 3
     start = offsets.to(torch.int64) & _M32
     pos = start
-    b_tab = torch.tensor(bounds[1:], dtype=torch.int64, device=dev)
-    adj_t = torch.tensor(adj, dtype=torch.int64, device=dev)
-    syms = symbols.to(torch.int64)
+    b_tab = torch.tensor(code.bounds[1:], dtype=torch.int64, device=dev)
+    adj_t = torch.tensor(code.adj, dtype=torch.int64, device=dev)
+    syms = code.symbols.to(torch.int64)
     out = torch.empty((nb, num_steps), dtype=torch.int64, device=dev)
     for g in range(0, num_steps, 4):
         wi = torch.clamp(pos >> 5, max=last)
@@ -309,13 +332,12 @@ def _decode_plain(words: torch.Tensor, offsets: torch.Tensor,
 
 
 def decode_images_plain(words: torch.Tensor, offsets: torch.Tensor,
-                        symbols: torch.Tensor, bounds, adj, *,
-                        num_frames: int, bh: int, bw: int, delta: bool,
-                        delta2d: bool = False, emit_end: bool = False):
+                        code: Code, *, num_frames: int, bh: int, bw: int,
+                        delta: bool, delta2d: bool = False,
+                        emit_end: bool = False):
     """Plain PyTorch version of the image kernel: the same output as
     :func:`decode_images`, (out, end) with ``emit_end``."""
-    out, end = _decode_plain(words, offsets, symbols, bounds, adj, 64,
-                             _mode(delta, delta2d))
+    out, end = _decode_plain(words, offsets, code, 64, _mode(delta, delta2d))
     img = out.to(torch.uint8).view(num_frames, bh, bw, 8, 8).permute(
         0, 1, 3, 2, 4).reshape(num_frames, bh * 8, bw * 8)
     return (img, end) if emit_end else img
@@ -331,30 +353,30 @@ def _check_steps(num_steps: int, delta2d: bool) -> None:
 
 
 def decode_blocks_plain(words: torch.Tensor, offsets: torch.Tensor,
-                        symbols: torch.Tensor, bounds, adj, *, num_steps: int,
-                        delta: bool, delta2d: bool = False,
-                        emit_end: bool = False):
+                        code: Code, *, num_steps: int, delta: bool,
+                        delta2d: bool = False, emit_end: bool = False):
     """Plain PyTorch version of the packed-block kernel: the same output as
     :func:`decode_blocks`, (out, end) with ``emit_end``."""
     _check_steps(num_steps, delta2d)
-    out, end = _decode_plain(words, offsets, symbols, bounds, adj, num_steps,
+    out, end = _decode_plain(words, offsets, code, num_steps,
                              _mode(delta, delta2d))
     out = out.to(torch.uint8)
     return (out, end) if emit_end else out
 
 
-def _check_inputs(words, offsets, symbols, bounds, adj, n_blocks: int) -> str:
+def _check_inputs(words, offsets, code: Code, n_blocks: int) -> str:
     """Validate a wrapper's inputs; return the device type they lie on."""
     for name, x, dtype in (("words", words, torch.int32),
                            ("offsets", offsets, torch.int32),
-                           ("symbols", symbols, torch.uint8)):
+                           ("code.symbols", code.symbols, torch.uint8)):
         if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
         if x.device != words.device:
             raise ValueError(f"{name} is on {x.device}, words on {words.device}")
     if offsets.numel() != n_blocks:
         raise ValueError(f"{offsets.numel()} block offsets for {n_blocks} blocks")
-    if symbols.numel() != 256 or len(bounds) != 16 or len(adj) != 16:
+    if (code.symbols.numel() != 256 or len(code.bounds) != 16
+            or len(code.adj) != 16):
         raise ValueError("the table needs 256 symbols, 16 bounds, 16 adj")
     if words.numel() < 3:
         raise ValueError("the word stream needs at least 3 words")
@@ -364,34 +386,29 @@ def _check_inputs(words, offsets, symbols, bounds, adj, n_blocks: int) -> str:
     return kind
 
 
-def _table_args(bounds, adj):
+def _table_args(code: Code):
     """The interval table as the probes' kernels take it (two C arrays)."""
-    return (ctypes.c_uint32 * 16)(*bounds), (ctypes.c_int32 * 16)(*adj)
+    return ((ctypes.c_uint32 * 16)(*code.bounds),
+            (ctypes.c_int32 * 16)(*code.adj))
 
 
-def _check_table(table: LookupTable | None, words: torch.Tensor) -> None:
+def _check_table(code: Code, words: torch.Tensor) -> None:
     """Validate the lookup table a CUDA decode launches with."""
-    if table is None:
-        raise ValueError(
-            "a CUDA decode needs the stream's staged lookup table (table=; "
-            "prepare_shared stages it as .table, lookup_table builds it)")
-    x = table.entries
+    x = code.entries
     if x.dtype != torch.int16 or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError("table.entries must be a contiguous 1-D int16 tensor")
+        raise ValueError("the lookup table (code.entries) must be a "
+                         "contiguous 1-D int16 tensor")
     if x.device != words.device:
-        raise ValueError(f"table is on {x.device}, words on {words.device}")
+        raise ValueError(f"the lookup table is on {x.device}, words on "
+                         f"{words.device}")
     t1, per_t2 = 1 << LUT_K1, 1 << (16 - LUT_K1)
-    if (x.numel() < t1 or (x.numel() - t1) % per_t2 or table.num_t2 > t1
+    if (x.numel() < t1 or (x.numel() - t1) % per_t2 or code.num_t2 > t1
             or x.data_ptr() % 16):
-        raise ValueError(f"table.entries ({x.numel()}) is no 16-byte aligned "
-                         f"{LUT_K1}/{16 - LUT_K1} table")
+        raise ValueError(f"the lookup table (code.entries, {x.numel()}) is "
+                         f"no 16-byte aligned {LUT_K1}/{16 - LUT_K1} table")
 
 
-def _table_path(name: str, table: LookupTable) -> str:
-    return f"{name} T2 {'smem' if table.t2_in_smem else 'L1'}"
-
-
-def _launch(name: str, words: torch.Tensor, table: LookupTable, *args) -> None:
+def _launch(name: str, words: torch.Tensor, code: Code, *args) -> None:
     """Launch kernel ``name`` on the current stream of ``words``' device:
     ``mht_<name>(words, n_words, *args[:k], table..., *args[k:])`` where the
     table's three arguments follow the geometry (k = 4 for the image kernel,
@@ -400,17 +417,16 @@ def _launch(name: str, words: torch.Tensor, table: LookupTable, *args) -> None:
 
     k = 4 if name == "decode_images" else 3
     _build.launch(name, words.device, words.data_ptr(), words.numel(),
-                  *args[:k], table.entries.data_ptr(), table.entries.numel(),
-                  int(table.t2_in_smem), *args[k:])
+                  *args[:k], code.entries.data_ptr(), code.entries.numel(),
+                  int(code.t2_in_smem), *args[k:])
     launches[name] += 1
-    path_launches[_table_path(name, table)] += 1
+    path_launches[f"{name} T2 {'smem' if code.t2_in_smem else 'L1'}"] += 1
 
 
-def launch_shape(name: str, n_words: int, n_blocks: int,
-                 table: LookupTable, *, mode: int = 1,
-                 num_steps: int = 64) -> dict:
+def launch_shape(name: str, n_words: int, n_blocks: int, code: Code, *,
+                 mode: int = 1, num_steps: int = 64) -> dict:
     """The grid kernel ``name`` launches over ``n_blocks`` blocks of
-    ``n_words`` code words with ``table`` (on its CUDA device), and the
+    ``n_words`` code words with ``code`` (on its CUDA device), and the
     kernel's attributes: resident CUDA blocks per SM (for B2, under its
     cap), grid, dynamic and static shared memory per CUDA block, registers
     and local (spill) bytes per thread."""
@@ -420,9 +436,8 @@ def launch_shape(name: str, n_words: int, n_blocks: int,
     geo = ((n_blocks,) if name == "decode_images"
            else (n_words, n_blocks, num_steps))
     fn = getattr(_build.lib(name), f"mht_{name}_shape")
-    with torch.cuda.device(table.entries.device):
-        err = fn(*geo, table.entries.numel(), int(table.t2_in_smem), mode,
-                 shape)
+    with torch.cuda.device(code.entries.device):
+        err = fn(*geo, code.entries.numel(), int(code.t2_in_smem), mode, shape)
     if err:
         raise RuntimeError(f"mht_{name}_shape failed: CUDA error {err}")
     return dict(zip(("ctas_per_sm", "grid", "dyn_smem", "static_smem",
@@ -449,10 +464,9 @@ def _plain_into(out: torch.Tensor | None, result, emit_end: bool):
     return (out, result[1]) if emit_end else out
 
 
-def decode_images(words: torch.Tensor, offsets: torch.Tensor,
-                  symbols: torch.Tensor, bounds, adj, *, num_frames: int,
-                  bh: int, bw: int, delta: bool, delta2d: bool = False,
-                  emit_end: bool = False, table: LookupTable | None = None,
+def decode_images(words: torch.Tensor, offsets: torch.Tensor, code: Code, *,
+                  num_frames: int, bh: int, bw: int, delta: bool,
+                  delta2d: bool = False, emit_end: bool = False,
                   out: torch.Tensor | None = None):
     """Decode a staged shared-table batch of 8x8 blocks -> (T, bh*8, bw*8)
     uint8, and with ``emit_end`` also the (T*bh*bw,) int32 row-local end
@@ -461,29 +475,26 @@ def decode_images(words: torch.Tensor, offsets: torch.Tensor,
 
     ``words``: (n,) int32 big-endian code words (:func:`prepare_stream`);
     ``offsets``: (T*bh*bw,) int32 block bit offsets (read as u32);
-    ``symbols``: (256,) uint8 canonical symbol order; ``bounds``/``adj``:
-    the 16-entry interval table (host ints); ``table``: the same code's
-    :func:`lookup_table` on the tensors' device. CPU tensors run
-    :func:`decode_images_plain` on the interval table; CUDA tensors launch
-    the kernel with ``table``, and raise without it.
+    ``code``: the stream's :class:`Code` on the tensors' device. CPU tensors
+    run :func:`decode_images_plain` on its interval table; CUDA tensors
+    launch the kernel with its lookup table.
     """
     mode = _mode(delta, delta2d)
     nb = num_frames * bh * bw
-    kind = _check_inputs(words, offsets, symbols, bounds, adj, nb)
+    kind = _check_inputs(words, offsets, code, nb)
     _check_out(out, (num_frames, bh * 8, bw * 8), words, 16)
     if kind == "cpu":
         return _plain_into(out, decode_images_plain(
-            words, offsets, symbols, bounds, adj, num_frames=num_frames,
-            bh=bh, bw=bw, delta=delta, delta2d=delta2d, emit_end=emit_end),
-            emit_end)
-    _check_table(table, words)
+            words, offsets, code, num_frames=num_frames, bh=bh, bw=bw,
+            delta=delta, delta2d=delta2d, emit_end=emit_end), emit_end)
+    _check_table(code, words)
     if out is None:
         out = torch.empty((num_frames, bh * 8, bw * 8), dtype=torch.uint8,
                           device=words.device)
     end = (torch.empty(nb, dtype=torch.int32, device=words.device)
            if emit_end else None)
     if nb:
-        _launch("decode_images", words, table, offsets.data_ptr(), nb, bh, bw,
+        _launch("decode_images", words, code, offsets.data_ptr(), nb, bh, bw,
                 mode, out.data_ptr(), None if end is None else end.data_ptr())
     return (out, end) if emit_end else out
 
@@ -495,11 +506,9 @@ def store_bytes(num_steps: int) -> int:
     return 16 if num_steps % 16 == 0 else 4 if num_steps % 4 == 0 else 1
 
 
-def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
-                  symbols: torch.Tensor, bounds, adj, *, num_steps: int,
-                  delta: bool, delta2d: bool = False, emit_end: bool = False,
-                  table: LookupTable | None = None,
-                  out: torch.Tensor | None = None):
+def decode_blocks(words: torch.Tensor, offsets: torch.Tensor, code: Code, *,
+                  num_steps: int, delta: bool, delta2d: bool = False,
+                  emit_end: bool = False, out: torch.Tensor | None = None):
     """Decode staged blocks of ``num_steps`` symbols -> (nb, num_steps)
     uint8 in the order of ``offsets``, and with ``emit_end`` also the (nb,)
     int32 row-local end bits. With ``out`` the blocks go there.
@@ -507,25 +516,25 @@ def decode_blocks(words: torch.Tensor, offsets: torch.Tensor,
     The inputs are those of :func:`decode_images`; ``offsets`` may be in any
     order and may repeat. ``delta2d`` (in-kernel 2-D predictor) needs
     ``num_steps == 64``. CPU tensors run :func:`decode_blocks_plain`; CUDA
-    tensors launch the kernel with ``table``, and raise without it.
+    tensors launch the kernel.
     """
     mode = _mode(delta, delta2d)
     _check_steps(num_steps, delta2d)
     nb = offsets.numel()
-    kind = _check_inputs(words, offsets, symbols, bounds, adj, nb)
+    kind = _check_inputs(words, offsets, code, nb)
     _check_out(out, (nb, num_steps), words, store_bytes(num_steps))
     if kind == "cpu":
         return _plain_into(out, decode_blocks_plain(
-            words, offsets, symbols, bounds, adj, num_steps=num_steps,
-            delta=delta, delta2d=delta2d, emit_end=emit_end), emit_end)
-    _check_table(table, words)
+            words, offsets, code, num_steps=num_steps, delta=delta,
+            delta2d=delta2d, emit_end=emit_end), emit_end)
+    _check_table(code, words)
     if out is None:
         out = torch.empty((nb, num_steps), dtype=torch.uint8,
                           device=words.device)
     end = (torch.empty(nb, dtype=torch.int32, device=words.device)
            if emit_end else None)
     if nb:
-        _launch("decode_blocks", words, table, offsets.data_ptr(), nb,
+        _launch("decode_blocks", words, code, offsets.data_ptr(), nb,
                 num_steps, mode, out.data_ptr(),
                 None if end is None else end.data_ptr())
     return (out, end) if emit_end else out

@@ -4,7 +4,7 @@ Counterpart of ``metalhuffman_tpu/parallel/multihost.py``. In the port one
 process is always one rank, so the sharded forms are already the multi-host
 ones; this module keeps the JAX package's names for them:
 
-- decode: every rank holds the stream's offset index and table (the small
+- decode: every rank holds the stream's offset index and code (the small
   side of the codec) and stages only the code words of its own block range
   (:func:`shard_global_inputs`); B2 decodes them there
   (:data:`decode_blocks_multihost`), and :func:`gather_blocks` fetches
@@ -46,7 +46,7 @@ def initialize(init_method: str, world_size: int, rank: int,
 def shard_global_inputs(stream, *, mesh=None, block_size: int = 64,
                         device="cuda"):
     """This rank's decode inputs: the code words and offsets of its block
-    range and the stream's tables, on ``device`` (see
+    range and the stream's code, on ``device`` (see
     :func:`.shard_decode.shard_stream_inputs`)."""
     rank, world, _ = axis_coords(mesh)
     lo, hi = block_range(rank, world, stream.block_offsets.size)

@@ -5,7 +5,7 @@ decodes alone from its bit offset, so a rank takes a contiguous range of
 blocks (:func:`block_range`), decodes it with the port's kernels (B2,
 ``decode_cuda.decode_blocks``, or B1, ``decode_cuda.decode_images``, on
 image rows), and one all-gather puts the ranges back in stream order. The
-code words and the tables are replicated, or with
+code words and the code are replicated, or with
 :func:`shard_stream_inputs` each rank stages only the words its range
 reaches.
 
@@ -56,48 +56,45 @@ def gather_rows(local: torch.Tensor, n: int, group=None) -> torch.Tensor:
 def shard_stream_inputs(stream, lo: int, hi: int, block_size: int = 64, *,
                         device="cuda"):
     """Stage the decode inputs of blocks [lo, hi) of an EncodedStream on
-    ``device`` -> (words, offsets, symbols, bounds, adj, table).
+    ``device`` -> (words, offsets, code).
 
     Only the code words that range reaches are staged
     (``decode_cuda.stream_window``), with its offsets rebased to them; the
-    tables are the stream's."""
-    meta = decode_cuda.canonical_meta(stream.widths)
+    code is the stream's (``decode_cuda.stage_code``)."""
     view = dataclasses.replace(stream, block_offsets=stream.block_offsets[lo:hi],
                                block_init=None)
-    code, offsets = decode_cuda.stream_window(view, block_size)
-    words, _ = decode_cuda.stage_words([code], device)
+    window, offsets = decode_cuda.stream_window(view, block_size)
+    words, _ = decode_cuda.stage_words([window], device)
     return (words, torch.from_numpy(offsets.view(np.int32)).to(device),
-            torch.from_numpy(meta.symbols).to(device), meta.bounds, meta.adj,
-            decode_cuda.lookup_table(meta, device))
+            decode_cuda.stage_code(stream.widths, device))
 
 
-def decode_blocks_local(words, offsets, symbols, bounds, adj, *, rank: int,
-                        world: int, num_steps: int = 64, delta: bool = True,
-                        delta2d: bool = False, table=None) -> torch.Tensor:
+def decode_blocks_local(words, offsets, code, *, rank: int, world: int,
+                        num_steps: int = 64, delta: bool = True,
+                        delta2d: bool = False) -> torch.Tensor:
     """B2 on ``rank``'s range of the (n,) offset index -> (hi - lo,
     num_steps) uint8. The inputs are ``decode_cuda.decode_blocks``'s."""
     lo, hi = block_range(rank, world, offsets.numel())
     return decode_cuda.decode_blocks(
-        words, offsets[lo:hi], symbols, bounds, adj, num_steps=num_steps,
-        delta=delta, delta2d=delta2d, table=table)
+        words, offsets[lo:hi], code, num_steps=num_steps, delta=delta,
+        delta2d=delta2d)
 
 
-def decode_blocks_sharded(words, offsets, symbols, bounds, adj, *, mesh=None,
+def decode_blocks_sharded(words, offsets, code, *, mesh=None,
                           num_steps: int = 64, delta: bool = True,
-                          delta2d: bool = False,
-                          table=None) -> torch.Tensor:
+                          delta2d: bool = False) -> torch.Tensor:
     """Decode one stream's blocks with their ranges over the mesh's block
     axis (:func:`.mesh.axis_coords`).
 
-    ``words``, ``symbols`` and ``table`` are replicated, ``offsets`` is the
-    whole (n,) index on every rank. Returns (n padded to a multiple of the
-    axis, num_steps) uint8 in stream order on every rank; the rows past n
-    are zero padding — crop them.
+    ``words`` and ``code`` are replicated, ``offsets`` is the whole (n,)
+    index on every rank. Returns (n padded to a multiple of the axis,
+    num_steps) uint8 in stream order on every rank; the rows past n are zero
+    padding — crop them.
     """
     rank, world, group = axis_coords(mesh)
     local = decode_blocks_local(
-        words, offsets, symbols, bounds, adj, rank=rank, world=world,
-        num_steps=num_steps, delta=delta, delta2d=delta2d, table=table)
+        words, offsets, code, rank=rank, world=world, num_steps=num_steps,
+        delta=delta, delta2d=delta2d)
     return gather_rows(local, offsets.numel(), group)
 
 
@@ -106,22 +103,21 @@ def decode_blocks_sharded(words, offsets, symbols, bounds, adj, *, mesh=None,
 decode_tiles_sharded = decode_blocks_sharded
 
 
-def decode_images_local(words, offsets, symbols, bounds, adj, *, rank: int,
-                        world: int, bw: int, delta: bool = True,
-                        delta2d: bool = False, table=None) -> torch.Tensor:
+def decode_images_local(words, offsets, code, *, rank: int, world: int,
+                        bw: int, delta: bool = True,
+                        delta2d: bool = False) -> torch.Tensor:
     """B1 on ``rank``'s range of the block rows of a (rows, bw) grid of 8x8
     blocks (frames stacked, so a range may cross frames) -> ((hi - lo) * 8,
     bw * 8) uint8 image rows."""
     lo, hi = block_range(rank, world, offsets.numel() // bw)
     return decode_cuda.decode_images(
-        words, offsets[lo * bw : hi * bw], symbols, bounds, adj, num_frames=1,
-        bh=hi - lo, bw=bw, delta=delta, delta2d=delta2d, table=table)[0]
+        words, offsets[lo * bw : hi * bw], code, num_frames=1, bh=hi - lo,
+        bw=bw, delta=delta, delta2d=delta2d)[0]
 
 
-def decode_tiles_images_sharded(words, offsets, symbols, bounds, adj, *,
-                                bw: int, mesh=None, delta: bool = True,
-                                delta2d: bool = False,
-                                table=None) -> torch.Tensor:
+def decode_tiles_images_sharded(words, offsets, code, *, bw: int, mesh=None,
+                                delta: bool = True,
+                                delta2d: bool = False) -> torch.Tensor:
     """Image-row decode: each rank runs B1 on its contiguous range of block
     rows and holds that horizontal slice of the frames; the gather returns
     (rows padded to a multiple of the axis * 8, bw * 8) uint8 image rows,
@@ -129,8 +125,8 @@ def decode_tiles_images_sharded(words, offsets, symbols, bounds, adj, *,
     a range needs no state from its neighbours."""
     rank, world, group = axis_coords(mesh)
     local = decode_images_local(
-        words, offsets, symbols, bounds, adj, rank=rank, world=world, bw=bw,
-        delta=delta, delta2d=delta2d, table=table)
+        words, offsets, code, rank=rank, world=world, bw=bw, delta=delta,
+        delta2d=delta2d)
     rows = gather_rows(local.view(-1, 64 * bw), offsets.numel() // bw, group)
     return rows.view(-1, 8 * bw)
 
@@ -139,13 +135,13 @@ def decode_frames_local(frames, *, data: tuple[int, int] = (0, 1),
                         seq: tuple[int, int] = (0, 1), num_steps: int = 64,
                         delta: bool = True,
                         delta2d: bool = False) -> torch.Tensor:
-    """B2 on a rank's frames and block range, each frame with its own table.
+    """B2 on a rank's frames and block range, each frame with its own code.
 
-    ``frames``: one-frame stagings with ``words``, ``offsets``, ``symbols``,
-    ``bounds``, ``adj`` and ``table`` (``PreparedBatch.frames``), all of one
-    block count; ``data`` and ``seq`` are the rank's (index, size) on the
-    frame and block axes. Returns (ceil(T / data size), ceil(nb / seq
-    size), num_steps) uint8, zero past the rank's frames and blocks.
+    ``frames``: one-frame stagings with ``words``, ``offsets`` and ``code``
+    (``PreparedBatch.frames``), all of one block count; ``data`` and ``seq``
+    are the rank's (index, size) on the frame and block axes. Returns
+    (ceil(T / data size), ceil(nb / seq size), num_steps) uint8, zero past
+    the rank's frames and blocks.
     """
     nb = frames[0].offsets.numel()
     f0, f1 = block_range(*data, len(frames))
@@ -154,9 +150,8 @@ def decode_frames_local(frames, *, data: tuple[int, int] = (0, 1),
                       dtype=torch.uint8, device=frames[0].words.device)
     for i, f in enumerate(frames[f0:f1]):
         decode_cuda.decode_blocks(
-            f.words, f.offsets[b0:b1], f.symbols, f.bounds, f.adj,
-            num_steps=num_steps, delta=delta, delta2d=delta2d, table=f.table,
-            out=out[i, : b1 - b0])
+            f.words, f.offsets[b0:b1], f.code, num_steps=num_steps,
+            delta=delta, delta2d=delta2d, out=out[i, : b1 - b0])
     return out
 
 
@@ -188,7 +183,7 @@ def gather_grid(local: torch.Tensor, n_frames: int, layout) -> torch.Tensor:
 def decode_frames_sharded(frames, *, mesh=None, num_steps: int = 64,
                           delta: bool = True,
                           delta2d: bool = False) -> torch.Tensor:
-    """Decode a batch of frames, a table each, on a ``data x seq`` mesh:
+    """Decode a batch of frames, a code each, on a ``data x seq`` mesh:
     frames over ``data``, block ranges over ``seq`` (see
     :func:`decode_frames_local`). Returns (T, nb padded to a multiple of
     the seq axis, num_steps) uint8 on every rank."""

@@ -15,7 +15,8 @@ body (the source's header comment says which). Two families:
   - ``xorfold``: base's decode with one u64 store per block, the XOR of
     its 8 row words: the store ablation.
 - B1's body as it is now (:data:`B1_FAMILY`), on B1's 11/5 lookup table
-  (``table=``, as :func:`..ops.decode_cuda.decode_images` takes it):
+  (the :class:`..ops.decode_cuda.Code`'s, as
+  :func:`..ops.decode_cuda.decode_images` reads it):
   - ``b1``: B1's body unchanged, the yardstick;
   - ``b1_esc32``: u32 entries whose escapes hold the secondary table's
     index (:func:`esc32_entries`, ``table32=``);
@@ -133,9 +134,10 @@ class Esc32Table:
         return self.nbytes <= decode_cuda.T2_SMEM_MAX_BYTES
 
 
-def esc32_table(meta: decode_cuda.CanonicalMeta, device) -> Esc32Table:
-    """Build ``meta``'s ``b1_esc32`` table and stage it on ``device``."""
-    ent = esc32_entries(meta).view(np.int32)
+def esc32_table(widths: np.ndarray, device) -> Esc32Table:
+    """The ``b1_esc32`` table of a 256-entry width table, staged on
+    ``device``."""
+    ent = esc32_entries(decode_cuda.canonical_meta(widths)).view(np.int32)
     return Esc32Table(torch.from_numpy(ent).to(device))
 
 
@@ -188,15 +190,14 @@ def xor_fold(img: torch.Tensor, num_frames: int, bh: int, bw: int):
 
 
 def ablate_decode_plain(words: torch.Tensor, offsets: torch.Tensor,
-                        symbols: torch.Tensor, bounds, adj, *,
-                        num_frames: int, bh: int, bw: int, variant: str):
+                        code: decode_cuda.Code, *, num_frames: int, bh: int,
+                        bw: int, variant: str):
     """Plain PyTorch version of every variant: B1's with the 1-D delta,
     XOR-folded for ``xorfold``."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
     img = decode_cuda.decode_images_plain(
-        words, offsets, symbols, bounds, adj, num_frames=num_frames, bh=bh,
-        bw=bw, delta=True)
+        words, offsets, code, num_frames=num_frames, bh=bh, bw=bw, delta=True)
     if variant == "xorfold":
         return xor_fold(img, num_frames, bh, bw)
     return img
@@ -205,7 +206,7 @@ def ablate_decode_plain(words: torch.Tensor, offsets: torch.Tensor,
 def _check_table32(table32: Esc32Table | None, words: torch.Tensor) -> None:
     """Validate the :func:`esc32_table` a CUDA launch takes."""
     if table32 is None:
-        raise ValueError("the b1_esc32 variants need esc32_table(meta, "
+        raise ValueError("the b1_esc32 variants need esc32_table(widths, "
                          "device)")
     x = table32.entries
     if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
@@ -237,15 +238,18 @@ def _lut_args(variant: str, lut: LutTables | None, words: torch.Tensor):
     return lut.t1.data_ptr(), lut.t2.data_ptr(), lut.num_t2
 
 
-def _b1_args(variant: str, table, table32, words: torch.Tensor):
-    """The b1 family's (table, table_entries, t2_smem) kernel arguments."""
+def _b1_args(variant: str, code: decode_cuda.Code, table32,
+             words: torch.Tensor):
+    """The b1 family's (table, table_entries, t2_smem) kernel arguments:
+    the code's lookup table, or ``table32`` for the esc32 variants."""
     if variant not in B1_FAMILY:
         return None, 0, 0
     if variant in ESC32_VARIANTS:
         _check_table32(table32, words)
         table = table32
     else:
-        decode_cuda._check_table(table, words)
+        decode_cuda._check_table(code, words)
+        table = code
     if variant in WIDE_REFILLS and words.data_ptr() % 8:
         raise ValueError(f"{variant} reads the words 8 bytes at a time: they "
                          "must be 8-byte aligned")
@@ -254,58 +258,54 @@ def _b1_args(variant: str, table, table32, words: torch.Tensor):
 
 
 def ablate_decode(words: torch.Tensor, offsets: torch.Tensor,
-                  symbols: torch.Tensor, bounds, adj, *, num_frames: int,
-                  bh: int, bw: int, variant: str,
-                  lut: LutTables | None = None,
-                  table: decode_cuda.LookupTable | None = None,
+                  code: decode_cuda.Code, *, num_frames: int, bh: int,
+                  bw: int, variant: str, lut: LutTables | None = None,
                   table32: Esc32Table | None = None):
     """Decode a staged shared-table batch of 8x8 blocks with the 1-D delta
-    as ``variant``: the inputs of :func:`..ops.decode_cuda.decode_images`,
-    and on the same device, for ``lut`` the table's :func:`lut_tables`,
-    for ``b1``, ``b1_refill64``, ``b1_row8`` and ``b1_s1smem`` B1's lookup
-    table (``table``, as ``prepare_shared`` stages it), for ``b1_esc32``
-    and ``b1_esc32_row8`` :func:`esc32_table` (``table32``). Returns (T,
-    bh*8, bw*8) uint8, or for ``xorfold`` (T*bh*bw,) int64. CPU tensors
-    run :func:`ablate_decode_plain`; CUDA tensors launch the kernel."""
+    as ``variant``: the inputs of :func:`..ops.decode_cuda.decode_images`
+    (the interval variants read the code's interval table, the b1 family
+    its lookup table), and on the same device, for ``lut`` the table's
+    :func:`lut_tables`, for ``b1_esc32`` and ``b1_esc32_row8``
+    :func:`esc32_table` (``table32``). Returns (T, bh*8, bw*8) uint8, or
+    for ``xorfold`` (T*bh*bw,) int64. CPU tensors run
+    :func:`ablate_decode_plain`; CUDA tensors launch the kernel."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
     nb = num_frames * bh * bw
-    if decode_cuda._check_inputs(words, offsets, symbols, bounds, adj,
-                                 nb) == "cpu":
-        return ablate_decode_plain(words, offsets, symbols, bounds, adj,
+    if decode_cuda._check_inputs(words, offsets, code, nb) == "cpu":
+        return ablate_decode_plain(words, offsets, code,
                                    num_frames=num_frames, bh=bh, bw=bw,
                                    variant=variant)
     lut_args = _lut_args(variant, lut, words)
-    b1_args = _b1_args(variant, table, table32, words)
+    b1_args = _b1_args(variant, code, table32, words)
     shape = (nb,) if variant == "xorfold" else (num_frames, bh * 8, bw * 8)
     out = torch.empty(shape, dtype=torch.int64 if variant == "xorfold"
                       else torch.uint8, device=words.device)
     if nb:
-        terms = (_pruned_args(tuple(bounds), tuple(adj))
+        terms = (_pruned_args(code.bounds, code.adj)
                  if variant == "pruned" else (0, None, None, 0))
         _build.launch(
             "ablate_decode", words.device, words.data_ptr(), words.numel(),
             offsets.data_ptr(), nb, bh, bw,
-            *decode_cuda._table_args(bounds, adj), symbols.data_ptr(),
+            *decode_cuda._table_args(code), code.symbols.data_ptr(),
             VARIANTS.index(variant), *terms, *lut_args, *b1_args,
             out.data_ptr())
         launches["ablate_decode"] += 1
     return out
 
 
-def launch_shape(variant: str, n_blocks: int, bounds, adj, *,
+def launch_shape(variant: str, n_blocks: int, code: decode_cuda.Code, *,
                  lut: LutTables | None = None,
-                 table: decode_cuda.LookupTable | None = None,
                  table32: Esc32Table | None = None) -> dict:
     """The launch :func:`ablate_decode` makes for ``variant`` over
-    ``n_blocks`` blocks with these tables (on a CUDA device), as
+    ``n_blocks`` blocks with ``code`` and these tables (on a CUDA device), as
     :func:`..ops.decode_cuda.launch_shape` gives B1's: resident CUDA blocks
     per SM, grid, dynamic and static shared memory per CUDA block,
     registers and local (spill) bytes per thread."""
-    n_terms = (_pruned_args(tuple(bounds), tuple(adj))[0]
+    n_terms = (_pruned_args(code.bounds, code.adj)[0]
                if variant == "pruned" else 0)
     n_t2 = lut.num_t2 if variant == "lut" else 0
-    tab = table32 if variant in ESC32_VARIANTS else table
+    tab = table32 if variant in ESC32_VARIANTS else code
     entries, t2_smem = ((tab.entries.numel(), int(tab.t2_in_smem))
                         if variant in B1_FAMILY else (0, 0))
     shape = (ctypes.c_int * 6)()
@@ -356,21 +356,18 @@ def main(argv=None) -> int:
     for frames in frame_sets:
         stream = fs.encode_frames_shared(frames)
         p = fs.prepare_shared(stream, t, h, w, device=device)
-        staged.append((p, dict(
-            lut=lut_tables(stream.widths, device), table=p.table,
-            table32=esc32_table(decode_cuda.canonical_meta(stream.widths),
-                                device))))
+        staged.append((p, dict(lut=lut_tables(stream.widths, device),
+                               table32=esc32_table(stream.widths, device))))
 
     def call(variant, i):
         p, tabs = staged[i]
-        return ablate_decode(p.words, p.offsets, p.symbols, p.bounds, p.adj,
-                             num_frames=t, bh=p.bh, bw=p.bw, variant=variant,
-                             **tabs)
+        return ablate_decode(p.words, p.offsets, p.code, num_frames=t,
+                             bh=p.bh, bw=p.bw, variant=variant, **tabs)
 
     for i, (p, _) in enumerate(staged):
         plain = decode_cuda.decode_images_plain(
-            p.words, p.offsets, p.symbols, p.bounds, p.adj, num_frames=t,
-            bh=p.bh, bw=p.bw, delta=True)
+            p.words, p.offsets, p.code, num_frames=t, bh=p.bh, bw=p.bw,
+            delta=True)
         ref = call("base", i)
         for v in variants:
             got = call(v, i)
@@ -382,19 +379,17 @@ def main(argv=None) -> int:
                 return 1
     p0, tabs0 = staged[0]
     print(f"every variant == base == plain on {len(staged)} inputs; "
-          f"T2 tables: {tabs0['lut'].num_t2} (8/8), {p0.table.num_t2} "
+          f"T2 tables: {tabs0['lut'].num_t2} (8/8), {p0.code.num_t2} "
           f"(11/5), compare terms: "
-          f"{len(pruned_terms(p0.bounds, p0.adj)[0])}")
+          f"{len(pruned_terms(p0.code.bounds, p0.code.adj)[0])}")
     fns = {"B1 decode_images": lambda i: decode_cuda.decode_images(
-        staged[i][0].words, staged[i][0].offsets, staged[i][0].symbols,
-        staged[i][0].bounds, staged[i][0].adj, num_frames=t,
-        bh=staged[i][0].bh, bw=staged[i][0].bw, delta=True,
-        table=staged[i][0].table)}
+        staged[i][0].words, staged[i][0].offsets, staged[i][0].code,
+        num_frames=t, bh=staged[i][0].bh, bw=staged[i][0].bw, delta=True)}
     fns.update({v: (lambda i, v=v: call(v, i)) for v in variants})
     shapes = {"B1 decode_images": decode_cuda.launch_shape(
-        "decode_images", p0.words.numel(), p0.offsets.numel(), p0.table)}
-    shapes.update({v: launch_shape(v, p0.offsets.numel(), p0.bounds, p0.adj,
-                                   **tabs0) for v in variants})
+        "decode_images", p0.words.numel(), p0.offsets.numel(), p0.code)}
+    shapes.update({v: launch_shape(v, p0.offsets.numel(), p0.code, **tabs0)
+                   for v in variants})
     name = card()
     for label, ms in measure_interleaved(fns, len(staged)).items():
         med = median(ms)

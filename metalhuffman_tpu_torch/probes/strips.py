@@ -118,31 +118,27 @@ def strip_stores(b0: int, n: int, bw: int) -> tuple[list, list]:
 
 
 def decode_strips_plain(words: torch.Tensor, offsets: torch.Tensor,
-                        symbols: torch.Tensor, bounds, adj, *,
-                        num_frames: int, bh: int, bw: int) -> torch.Tensor:
+                        code: decode_cuda.Code, *, num_frames: int, bh: int,
+                        bw: int) -> torch.Tensor:
     """Plain PyTorch version of the strip kernel: B1's, 1-D delta."""
     return decode_cuda.decode_images_plain(
-        words, offsets, symbols, bounds, adj, num_frames=num_frames, bh=bh,
-        bw=bw, delta=True)
+        words, offsets, code, num_frames=num_frames, bh=bh, bw=bw, delta=True)
 
 
 def decode_strips(words: torch.Tensor, offsets: torch.Tensor,
-                  symbols: torch.Tensor, bounds, adj, *, num_frames: int,
-                  bh: int, bw: int,
-                  table: decode_cuda.LookupTable | None = None,
-                  prefetch: bool = False) -> torch.Tensor:
+                  code: decode_cuda.Code, *, num_frames: int, bh: int,
+                  bw: int, prefetch: bool = False) -> torch.Tensor:
     """Decode a staged shared-table batch of 8x8 blocks with the 1-D delta
     -> (T, bh*8, bw*8) uint8, the inputs and output of
     :func:`..ops.decode_cuda.decode_images`. CPU tensors run
     :func:`decode_strips_plain`; CUDA tensors launch the kernel, in its
-    prefetching form with ``prefetch``, with ``table`` (the stream's staged
-    lookup table), whose bulk copies need 16-byte aligned words."""
+    prefetching form with ``prefetch``, with the code's lookup table; its
+    bulk copies need 16-byte aligned words."""
     nb = num_frames * bh * bw
-    if decode_cuda._check_inputs(words, offsets, symbols, bounds, adj,
-                                 nb) == "cpu":
-        return decode_strips_plain(words, offsets, symbols, bounds, adj,
+    if decode_cuda._check_inputs(words, offsets, code, nb) == "cpu":
+        return decode_strips_plain(words, offsets, code,
                                    num_frames=num_frames, bh=bh, bw=bw)
-    decode_cuda._check_table(table, words)
+    decode_cuda._check_table(code, words)
     if words.data_ptr() % 16:
         raise ValueError("decode_strips copies the words 16 bytes at a time: "
                          "they must be 16-byte aligned")
@@ -151,21 +147,21 @@ def decode_strips(words: torch.Tensor, offsets: torch.Tensor,
     if nb:
         _build.launch("decode_strips", words.device, words.data_ptr(),
                       words.numel(), offsets.data_ptr(), nb, bw,
-                      table.entries.data_ptr(), table.entries.numel(),
-                      int(table.t2_in_smem), int(prefetch), out.data_ptr())
+                      code.entries.data_ptr(), code.entries.numel(),
+                      int(code.t2_in_smem), int(prefetch), out.data_ptr())
         launches["decode_strips"] += 1
     return out
 
 
-def launch_shape(n_blocks: int, table: decode_cuda.LookupTable,
+def launch_shape(n_blocks: int, code: decode_cuda.Code,
                  prefetch: bool = False) -> dict:
     """The launch :func:`decode_strips` makes over ``n_blocks`` blocks with
-    ``table`` (on its CUDA device), as
+    ``code`` (on its CUDA device), as
     :func:`..ops.decode_cuda.launch_shape` gives B1's."""
     shape = (ctypes.c_int * 6)()
-    with torch.cuda.device(table.entries.device):
+    with torch.cuda.device(code.entries.device):
         err = _build.lib("decode_strips").mht_decode_strips_shape(
-            n_blocks, table.entries.numel(), int(table.t2_in_smem),
+            n_blocks, code.entries.numel(), int(code.t2_in_smem),
             int(prefetch), shape)
     if err:
         raise RuntimeError(f"mht_decode_strips_shape failed: CUDA error {err}")
@@ -201,14 +197,14 @@ def main(argv=None) -> int:
              for f in (frames, np.roll(frames, 1, axis=0))]
 
     def args(p):
-        return (p.words, p.offsets, p.symbols, p.bounds, p.adj)
+        return (p.words, p.offsets, p.code)
 
     def geo(p):
         return dict(num_frames=t, bh=p.bh, bw=p.bw)
 
     for form, prefetch in FORMS.items():
         out = decode_strips(*args(preps[0]), **geo(preps[0]),
-                            table=preps[0].table, prefetch=prefetch)
+                            prefetch=prefetch)
         ok = np.array_equal(
             fs.frames_from_raw(out, t, h, w).cpu().numpy(), frames)
         print(f"strips correct ({form}):", ok)
@@ -220,14 +216,13 @@ def main(argv=None) -> int:
           f"over {spans.shape[0]} CUDA blocks")
     p0 = preps[0]
     fns = {"B1 decode_images": lambda i: decode_cuda.decode_images(
-        *args(preps[i]), **geo(preps[i]), delta=True, table=preps[i].table)}
+        *args(preps[i]), **geo(preps[i]), delta=True)}
     shapes = {"B1 decode_images": decode_cuda.launch_shape(
-        "decode_images", p0.words.numel(), p0.offsets.numel(), p0.table)}
+        "decode_images", p0.words.numel(), p0.offsets.numel(), p0.code)}
     for form, prefetch in FORMS.items():
         fns[f"S1 {form}"] = (lambda i, prefetch=prefetch: decode_strips(
-            *args(preps[i]), **geo(preps[i]), table=preps[i].table,
-            prefetch=prefetch))
-        shapes[f"S1 {form}"] = launch_shape(p0.offsets.numel(), p0.table,
+            *args(preps[i]), **geo(preps[i]), prefetch=prefetch))
+        shapes[f"S1 {form}"] = launch_shape(p0.offsets.numel(), p0.code,
                                             prefetch)
     name = card()
     for label, ms in measure_interleaved(fns, len(preps)).items():

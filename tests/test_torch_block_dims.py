@@ -117,10 +117,10 @@ def test_decode_blocks_plain_matches_xla(n, delta):
     sym = rng.choice(40, n * 6, p=p / p.sum()).astype(np.uint8)
     stream = jnative.encode_symbols(sym, block_size=n)
     want, want_end = _xla_decode(stream, n, delta)
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     got, end = decode_cuda.decode_blocks(
         torch.from_numpy(words), torch.from_numpy(offsets),
-        torch.from_numpy(meta.symbols), meta.bounds, meta.adj, num_steps=n,
+        decode_cuda.stage_code(stream.widths, "cpu"), num_steps=n,
         delta=delta, emit_end=True)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(end.numpy(), want_end)
@@ -141,12 +141,11 @@ def test_block_dim_range():
         with pytest.raises(ValueError, match="block_dim"):
             CodecConfig(block_dim=bad)
     words = torch.zeros(8, dtype=torch.int32)
-    syms = torch.zeros(256, dtype=torch.uint8)
+    code = decode_cuda.stage_code(np.full(256, 8, np.uint8), "cpu")
     for steps in (0, 65026):
         with pytest.raises(ValueError, match=r"\[1, 65025\]"):
             decode_cuda.decode_blocks(words, torch.zeros(1, dtype=torch.int32),
-                                      syms, (0,) * 16, (0,) * 16,
-                                      num_steps=steps, delta=True)
+                                      code, num_steps=steps, delta=True)
     assert decode_cuda.MAX_STEPS == 255 * 255
     assert [decode_cuda.store_bytes(n) for n in (1, 9, 36, 144, 1024)] == [
         1, 1, 4, 16, 16]
@@ -157,7 +156,7 @@ def test_out_of_a_tail_size_may_start_at_any_byte():
     frames = _pan(1, t=1, h=9, w=12)
     stream = tfs.encode_frames_shared(frames, cfg)
     prep = tfs.prepare_shared(stream, 1, 9, 12, cfg, device="cpu")
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     out = torch.empty(12 * 9 + 1, dtype=torch.uint8)[1:].view(12, 9)
     got = decode_cuda.decode_blocks(*args, num_steps=9, delta=True, out=out)
     assert got is out

@@ -132,11 +132,11 @@ def test_decode_images_plain_matches_pallas(shape, mode):
             w_pad=prep.w_pad, bh=prep.bh)
         np.testing.assert_array_equal(ref, frames)
 
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     bh, bw = blocks.block_grid(h, w)
     out = decode_cuda.decode_images_plain(
         torch.from_numpy(words), torch.from_numpy(offsets),
-        torch.from_numpy(meta.symbols), meta.bounds, meta.adj,
+        decode_cuda.stage_code(stream.widths, "cpu"),
         num_frames=t, bh=bh, bw=bw, delta=cfg.delta and not cfg.delta2d,
         delta2d=cfg.delta2d)
     assert out.shape == (t, bh * 8, bw * 8) and out.dtype == torch.uint8
@@ -147,9 +147,9 @@ def test_decode_images_routes_cpu_tensors_to_plain():
     frames = _frames(2, 24, 40, seed=3)
     cfg = CodecConfig()
     stream = _stream(frames, cfg)
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words), torch.from_numpy(offsets),
-            torch.from_numpy(meta.symbols), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, "cpu"))
     geo = dict(num_frames=2, bh=3, bw=5, delta=True)
     before = dict(decode_cuda.launches)
     out = decode_cuda.decode_images(*args, **geo)
@@ -176,9 +176,9 @@ def test_decode_images_plain_end_bits_equal_block_end_targets():
     payload = np.concatenate([native.delta_encode(
         blocks.image_to_blocks(f).ravel(), 64) for f in frames])
     total_bits = int(TABLE.astype(np.int64)[payload].sum())  # exact
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words), torch.from_numpy(offsets),
-            torch.from_numpy(meta.symbols), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, "cpu"))
     geo = dict(num_frames=2, bh=3, bw=5, delta=True)
     img, end = decode_cuda.decode_images(*args, **geo, emit_end=True)
     assert torch.equal(img, decode_cuda.decode_images(*args, **geo))
@@ -238,10 +238,10 @@ def b2():
 
 
 def _plain(stream, n, delta):
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     return decode_cuda.decode_blocks(
         torch.from_numpy(words), torch.from_numpy(offsets),
-        torch.from_numpy(meta.symbols), meta.bounds, meta.adj, num_steps=n,
+        decode_cuda.stage_code(stream.widths, "cpu"), num_steps=n,
         delta=delta, emit_end=True)
 
 
@@ -296,11 +296,11 @@ def test_decode_blocks_corrupt_mask_matches_pallas(b2, n):
 def test_decode_blocks_selection_order_and_repeats():
     sym = _b2_symbols(16)
     stream = native.encode_symbols(sym, block_size=16)
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     sel = np.random.default_rng(0).integers(0, offsets.size, 200)
     out = decode_cuda.decode_blocks(
         torch.from_numpy(words), torch.from_numpy(offsets[sel].copy()),
-        torch.from_numpy(meta.symbols), meta.bounds, meta.adj, num_steps=16,
+        decode_cuda.stage_code(stream.widths, "cpu"), num_steps=16,
         delta=True)
     src = (np.cumsum(sym.reshape(-1, 16), 1) & 0xFF).astype(np.uint8)
     np.testing.assert_array_equal(out.numpy(), src[sel])
@@ -309,9 +309,9 @@ def test_decode_blocks_selection_order_and_repeats():
 def test_decode_blocks_routes_cpu_tensors_to_plain():
     sym = _b2_symbols(4)
     stream = native.encode_symbols(sym, block_size=4)
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words), torch.from_numpy(offsets),
-            torch.from_numpy(meta.symbols), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, "cpu"))
     before = dict(decode_cuda.launches)
     out = decode_cuda.decode_blocks(*args, num_steps=4, delta=False)
     assert decode_cuda.launches == before
@@ -324,9 +324,9 @@ def test_decode_blocks_delta2d_at_64_matches_images():
     frames = _frames(1, 16, 24, seed=6)
     cfg = CodecConfig(delta2d=True)
     stream = _stream(frames, cfg)
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words), torch.from_numpy(offsets),
-            torch.from_numpy(meta.symbols), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, "cpu"))
     out, end = decode_cuda.decode_blocks(*args, num_steps=64, delta=False,
                                          delta2d=True, emit_end=True)
     img, img_end = decode_cuda.decode_images(

@@ -327,8 +327,7 @@ def test_host_build_raises_with_the_compiler_error(monkeypatch, tmp_path):
 def test_decode_images_off_cpu_raises_instead_of_plain():
     args = (torch.zeros(8, dtype=torch.int32, device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta"),
-            torch.zeros(256, dtype=torch.uint8, device="meta"),
-            (0,) * 16, (0,) * 16)
+            decode_cuda.stage_code(np.full(256, 8, np.uint8), "meta"))
     before = dict(decode_cuda.launches)
     with pytest.raises(ValueError, match="meta"):
         decode_cuda.decode_images(*args, num_frames=1, bh=1, bw=2, delta=True)
@@ -365,23 +364,24 @@ def test_encode_rows_checks_its_inputs():
 def test_decode_images_checks_its_inputs():
     words = torch.zeros(8, dtype=torch.int32)
     offs = torch.zeros(2, dtype=torch.int32)
-    syms = torch.zeros(256, dtype=torch.uint8)
-    table = ((0,) * 16, (0,) * 16)
+    # a code by hand: the interval table of no code at all
+    code = decode_cuda.Code(torch.zeros(256, dtype=torch.uint8), (0,) * 16,
+                            (0,) * 16, torch.zeros(2048, dtype=torch.int16))
     with pytest.raises(ValueError, match="offsets"):
-        decode_cuda.decode_images(words, offs.long(), syms, *table,
+        decode_cuda.decode_images(words, offs.long(), code,
                                   num_frames=1, bh=1, bw=2, delta=True)
     with pytest.raises(ValueError, match="block offsets"):
-        decode_cuda.decode_images(words, offs, syms, *table,
+        decode_cuda.decode_images(words, offs, code,
                                   num_frames=1, bh=1, bw=3, delta=True)
     with pytest.raises(ValueError, match="delta2d"):
-        decode_cuda.decode_images(words, offs, syms, *table, num_frames=1,
+        decode_cuda.decode_images(words, offs, code, num_frames=1,
                                   bh=1, bw=2, delta=True, delta2d=True)
     for steps in (0, -4, 65026):
         with pytest.raises(ValueError, match=r"must be in \[1, 65025\]"):
-            decode_cuda.decode_blocks(words, offs, syms, *table,
+            decode_cuda.decode_blocks(words, offs, code,
                                       num_steps=steps, delta=True)
     with pytest.raises(ValueError, match="8x8"):
-        decode_cuda.decode_blocks(words, offs, syms, *table, num_steps=16,
+        decode_cuda.decode_blocks(words, offs, code, num_steps=16,
                                   delta=False, delta2d=True)
 
 

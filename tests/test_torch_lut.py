@@ -1,6 +1,6 @@
 """The decode kernels' lookup table (metalhuffman_tpu_torch.ops.decode_cuda:
-``lookup_entries``, ``lookup_table``) against the interval decode, and its
-routing through the staging and the wrappers.
+``lookup_entries``, staged in a ``Code`` by ``stage_code``) against the
+interval decode, and its routing through the staging and the wrappers.
 
 The table must be the interval decode of the JAX package's Pallas kernels,
 tabulated: the same (width, symbol) on every one of the 65,536 16-bit
@@ -128,8 +128,7 @@ def test_lookup_table_is_the_interval_decode_on_every_window(name):
 
 
 def _table(name):
-    return decode_cuda.lookup_table(
-        decode_cuda.canonical_meta(TABLES[name]), "cpu")
+    return decode_cuda.stage_code(TABLES[name], "cpu")
 
 
 def test_lookup_table_sizes():
@@ -187,9 +186,7 @@ def test_lookup_decode_of_garbage_equals_the_plain_version(name):
     # at random offsets, in numpy, against the plain interval decode
     meta = decode_cuda.canonical_meta(TABLES[name])
     words, offsets = _random_words(sum(map(ord, name)))
-    plain, end = decode_cuda._decode_plain(
-        words, offsets, torch.from_numpy(meta.symbols), meta.bounds, meta.adj,
-        16, 0)
+    plain, end = decode_cuda._decode_plain(words, offsets, _table(name), 16, 0)
     w64 = words.numpy().view(np.uint32).astype(np.uint64)
     pos = offsets.numpy().view(np.uint32).astype(np.uint64)
     start = pos.copy()
@@ -238,11 +235,11 @@ def _stream(t=2, h=16, w=24, cfg=None):
 def test_prepare_shared_stages_the_table():
     frames, stream = _stream()
     prep = tfs.prepare_shared(stream, 2, 16, 24, device="cpu")
-    assert isinstance(prep.table, decode_cuda.LookupTable)
-    assert prep.table.entries.dtype == torch.int16
-    assert prep.table.entries.device == prep.words.device
+    assert isinstance(prep.code, decode_cuda.Code)
+    assert prep.code.entries.dtype == torch.int16
+    assert prep.code.entries.device == prep.words.device
     np.testing.assert_array_equal(
-        prep.table.entries.numpy().view(np.uint16),
+        prep.code.entries.numpy().view(np.uint16),
         decode_cuda.lookup_entries(decode_cuda.canonical_meta(stream.widths)))
     out = tfs.decode_shared_step(prep)
     np.testing.assert_array_equal(out.numpy(), frames)
@@ -255,14 +252,14 @@ def test_decode_blocks_selection_stages_the_table(monkeypatch, bd):
     original = decode_cuda.decode_blocks
 
     def spy(*args, **kwargs):
-        seen.append(kwargs.get("table"))
+        seen.append(args[2])  # the code
         return original(*args, **kwargs)
 
     monkeypatch.setattr(decode_cuda, "decode_blocks", spy)
     sel = np.array([3, 0, 5, 3])
     img = tic.decode_blocks_selection(stream, sel, bd, 4 * bd,
                                       CodecConfig(block_dim=bd), device="cpu")
-    assert len(seen) == 1 and isinstance(seen[0], decode_cuda.LookupTable)
+    assert len(seen) == 1 and isinstance(seen[0], decode_cuda.Code)
     np.testing.assert_array_equal(
         seen[0].entries.numpy().view(np.uint16),
         decode_cuda.lookup_entries(decode_cuda.canonical_meta(stream.widths)))
@@ -289,18 +286,33 @@ def as_cuda(monkeypatch):
 def _staged(cfg=None):
     _frames, stream = _stream(2, 16, 24, cfg)
     prep = tfs.prepare_shared(stream, 2, 16, 24, cfg, device="cpu")
-    return prep, (prep.words, prep.offsets, prep.symbols, prep.bounds,
-                  prep.adj)
+    return prep, (prep.words, prep.offsets)
 
 
-def test_cuda_decode_without_the_table_raises(as_cuda):
+@pytest.mark.parametrize("name", TABLES)
+def test_stage_code_holds_both_tables_and_stays_on_its_device(as_cuda, name):
+    widths = TABLES[name]
+    code = decode_cuda.stage_code(widths, "cpu")
+    meta = decode_cuda.canonical_meta(widths)
+    assert code.symbols.dtype == torch.uint8
+    np.testing.assert_array_equal(code.symbols.numpy(), meta.symbols)
+    assert (code.bounds, code.adj) == (meta.bounds, meta.adj)
+    np.testing.assert_array_equal(code.entries.numpy().view(np.uint16),
+                                  decode_cuda.lookup_entries(meta))
+    assert code.entries.dtype == torch.int16
+    assert code.entries.data_ptr() % 16 == 0
+    # a CUDA-routed decode refuses a code staged on another device than
+    # the words, whole or only its lookup table
     prep, args = _staged()
+    geo = dict(num_frames=2, bh=prep.bh, bw=prep.bw, delta=True)
     before = dict(decode_cuda.launches), dict(decode_cuda.path_launches)
-    with pytest.raises(ValueError, match="lookup table"):
-        decode_cuda.decode_images(*args, num_frames=2, bh=prep.bh, bw=prep.bw,
-                                  delta=True)
-    with pytest.raises(ValueError, match="lookup table"):
-        decode_cuda.decode_blocks(*args, num_steps=64, delta=True)
+    with pytest.raises(ValueError, match="on meta, words on cpu"):
+        decode_cuda.decode_images(
+            *args, decode_cuda.stage_code(widths, "meta"), **geo)
+    with pytest.raises(ValueError, match="table is on meta, words on cpu"):
+        decode_cuda.decode_blocks(
+            *args, dataclasses.replace(code, entries=code.entries.to("meta")),
+            num_steps=64, delta=True)
     assert as_cuda == []
     assert (dict(decode_cuda.launches), dict(decode_cuda.path_launches)) \
         == before
@@ -309,22 +321,21 @@ def test_cuda_decode_without_the_table_raises(as_cuda):
 def test_cuda_decode_checks_the_table(as_cuda):
     prep, args = _staged()
     geo = dict(num_frames=2, bh=prep.bh, bw=prep.bw, delta=True)
-    e = prep.table.entries
+    e = prep.code.entries
     bad = [e.int(), e[:-1], e[1:], torch.cat([e, e])[::2],
            torch.zeros(256, dtype=torch.int16).view(16, 16)]
     for entries in bad:
         with pytest.raises(ValueError, match="table"):
             decode_cuda.decode_images(
-                *args, **geo, table=dataclasses.replace(prep.table,
-                                                        entries=entries))
+                *args, dataclasses.replace(prep.code, entries=entries), **geo)
     with pytest.raises(ValueError, match="11/5 table"):
         decode_cuda.decode_blocks(
-            *args, num_steps=64, delta=True,
-            table=dataclasses.replace(prep.table, entries=e[:1 << 8]))
+            *args, dataclasses.replace(prep.code, entries=e[:1 << 8]),
+            num_steps=64, delta=True)
     with pytest.raises(ValueError, match="table is on meta"):
         decode_cuda.decode_blocks(
-            *args, num_steps=64, delta=True,
-            table=dataclasses.replace(prep.table, entries=e.to("meta")))
+            *args, dataclasses.replace(prep.code, entries=e.to("meta")),
+            num_steps=64, delta=True)
     assert as_cuda == []
 
 
@@ -332,13 +343,13 @@ def test_cuda_decode_launches_with_the_table_by_path(as_cuda):
     prep, args = _staged()
     wide = _table("all-16")
     before = dict(decode_cuda.path_launches)
-    decode_cuda.decode_images(*args, num_frames=2, bh=prep.bh, bw=prep.bw,
-                              delta=True, emit_end=True, table=prep.table)
-    decode_cuda.decode_blocks(*args, num_steps=64, delta=False, delta2d=True,
-                              table=wide)
+    decode_cuda.decode_images(*args, prep.code, num_frames=2, bh=prep.bh,
+                              bw=prep.bw, delta=True, emit_end=True)
+    decode_cuda.decode_blocks(*args, wide, num_steps=64, delta=False,
+                              delta2d=True)
     (n1, a1), (n2, a2) = as_cuda
     nb = prep.offsets.numel()
-    e = prep.table.entries
+    e = prep.code.entries
     # words, n_words, offsets, n_blocks, bh, bw, table..., mode, out, end
     assert n1 == "decode_images"
     assert a1[:4] == (prep.words.data_ptr(), prep.words.numel(),
@@ -382,9 +393,10 @@ def test_cpu_decodes_never_reach_the_build(monkeypatch):
 
 
 def test_lookup_table_stages_a_copy():
-    meta = decode_cuda.canonical_meta(native.code_lengths(
-        np.bincount(np.arange(40, dtype=np.uint8).repeat(3), minlength=256)))
-    table = decode_cuda.lookup_table(meta, "cpu")
+    widths = native.code_lengths(
+        np.bincount(np.arange(40, dtype=np.uint8).repeat(3), minlength=256))
+    meta = decode_cuda.canonical_meta(widths)
+    table = decode_cuda.stage_code(widths, "cpu")
     table.entries.zero_()  # the cache behind lookup_entries is untouched
     assert (decode_cuda.lookup_entries(meta) != 0).all()
     assert table.num_t2 == 0 and table.t2_in_smem

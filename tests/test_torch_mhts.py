@@ -254,15 +254,15 @@ def test_prepare_batch_stages_a_table_per_frame_in_one_tensor():
     storages = set()
     for f, s in zip(prep.frames, streams):
         want = decode_cuda.lookup_entries(decode_cuda.canonical_meta(s.widths))
-        np.testing.assert_array_equal(f.table.entries.numpy().view(np.uint16),
+        np.testing.assert_array_equal(f.code.entries.numpy().view(np.uint16),
                                       want)
-        assert f.table.entries.data_ptr() % 16 == 0
-        for x in (f.words, f.offsets, f.symbols, f.table.entries):
+        assert f.code.entries.data_ptr() % 16 == 0
+        for x in (f.words, f.offsets, f.code.symbols, f.code.entries):
             storages.add(x.untyped_storage().data_ptr())
-        np.testing.assert_array_equal(f.symbols.numpy(),
+        np.testing.assert_array_equal(f.code.symbols.numpy(),
                                       decode_cuda.canonical_meta(
                                           s.widths).symbols)
-    assert len(storages) == 4  # words, offsets, symbols, tables
+    assert len(storages) == 4  # words, offsets, symbols, lookup tables
     with pytest.raises(ValueError, match="blocks"):
         tfs.prepare_batch(streams, H, W + 8, device="cpu")
     with pytest.raises(ValueError, match="empty"):
@@ -300,8 +300,8 @@ def test_decode_batch_launches_once_per_frame_with_its_table(as_cuda, bd):
         assert args[0] == f.words.data_ptr() and args[1] == f.words.numel()
         assert args[2] == f.offsets.data_ptr() and args[3] == nb
         k = 6 if bd == 8 else 5  # the table follows the geometry
-        assert args[k : k + 2] == (f.table.entries.data_ptr(),
-                                   f.table.entries.numel())
+        assert args[k : k + 2] == (f.code.entries.data_ptr(),
+                                   f.code.entries.numel())
         outs.append(args[k + 4])
     # one output: each launch writes the next frame's rows of it
     step = {8: (prep.bh * 8) * (prep.bw * 8), 4: nb * 16}[bd]
@@ -312,7 +312,7 @@ def test_decode_wrappers_write_into_out():
     frames = _frames(2, 16, 24, seed=14)
     stream = tfs.encode_frames_shared(frames)
     prep = tfs.prepare_shared(stream, 2, 16, 24, device="cpu")
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     geo = dict(num_frames=2, bh=2, bw=3, delta=True)
     out = torch.empty((2, 16, 24), dtype=torch.uint8)
     got, end = decode_cuda.decode_images(*args, **geo, emit_end=True, out=out)
@@ -336,10 +336,9 @@ def test_decode_wrappers_write_into_out():
     cfg = CodecConfig(block_dim=2)
     s2 = tfs.encode_frames_shared(frames[:, :4, :6], cfg)
     p2 = tfs.prepare_shared(s2, 2, 4, 6, cfg, device="cpu")
-    decode_cuda.decode_blocks(p2.words, p2.offsets, p2.symbols, p2.bounds,
-                              p2.adj, num_steps=4, delta=True, out=small)
+    decode_cuda.decode_blocks(p2.words, p2.offsets, p2.code, num_steps=4,
+                              delta=True, out=small)
     with pytest.raises(ValueError, match="4-byte aligned"):
         decode_cuda.decode_blocks(
-            p2.words, p2.offsets, p2.symbols, p2.bounds, p2.adj, num_steps=4,
-            delta=True,
+            p2.words, p2.offsets, p2.code, num_steps=4, delta=True,
             out=torch.empty(12 * 4 + 2, dtype=torch.uint8)[2:].view(12, 4))

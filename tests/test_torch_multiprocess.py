@@ -89,7 +89,7 @@ def _decode_case(rank, world):
     m = mesh.make_mesh(device="cpu")
     stream = tfs.encode_frames_shared(frames)
     prep = tfs.prepare_shared(stream, t, h, w, device="cpu")
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     single = decode_cuda.decode_blocks(*args, num_steps=64, delta=True)
     nb = single.shape[0]
     # a 1-D mesh's one axis is its block axis, whatever make_mesh named it
@@ -105,10 +105,10 @@ def _decode_case(rank, world):
     assert rows.shape[0] == -(-t * prep.bh // world) * world * 8
     _equal(rows[: t * prep.bh * 8].view(raw.shape), raw)
 
-    *ins, table = multihost.shard_global_inputs(
+    ins = multihost.shard_global_inputs(
         stream, mesh=multihost.global_mesh(device="cpu"), device="cpu")
     lo, hi = shard_decode.block_range(rank, world, nb)
-    local = multihost.decode_blocks_multihost(*ins, table=table)
+    local = multihost.decode_blocks_multihost(*ins)
     _equal(local, single[lo:hi])
     _equal(multihost.gather_blocks(local, nb), single)
 

@@ -196,9 +196,9 @@ def nonmultiple():
 @pytest.mark.parametrize("world", WORLDS)
 def test_decode_blocks_local_matches_jax(nonmultiple, world):
     stream, ref = nonmultiple
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words), torch.from_numpy(offsets),
-            torch.from_numpy(meta.symbols), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, "cpu"))
     parts = [shard_decode.decode_blocks_local(*args, rank=r, world=world)
              for r in range(world)]
     np.testing.assert_array_equal(torch.cat(parts).numpy(), ref)
@@ -208,10 +208,9 @@ def test_decode_blocks_local_matches_jax(nonmultiple, world):
     win = []
     for r in range(world):
         lo, hi = shard_decode.block_range(r, world, n)
-        *ins, table = shard_decode.shard_stream_inputs(stream, lo, hi,
-                                                       device="cpu")
+        ins = shard_decode.shard_stream_inputs(stream, lo, hi, device="cpu")
         assert ins[1].numel() == hi - lo
-        win.append(multihost.decode_blocks_multihost(*ins, table=table))
+        win.append(multihost.decode_blocks_multihost(*ins))
     np.testing.assert_array_equal(torch.cat(win).numpy(), ref)
 
 
@@ -316,7 +315,7 @@ def test_decode_shared_local_matches_jax(shared, world):
     # decode_tiles_images_sharded's local step on replicated inputs
     prep = tfs.prepare_shared(stream, t, h, w, device="cpu")
     rows = torch.cat([shard_decode.decode_images_local(
-        prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj,
+        prep.words, prep.offsets, prep.code,
         rank=r, world=world, bw=bw) for r in range(world)])
     np.testing.assert_array_equal(
         rows.view(t, bh * 8, bw * 8)[:, :h, :w].numpy(), ref)
@@ -347,7 +346,7 @@ def test_decode_images_local_matches_decode_images(world):
     frames = _frames(3, 40, 48, seed=6)
     stream = tfs.encode_frames_shared(frames)
     prep = tfs.prepare_shared(stream, 3, 40, 48, device="cpu")
-    args = (prep.words, prep.offsets, prep.symbols, prep.bounds, prep.adj)
+    args = (prep.words, prep.offsets, prep.code)
     parts = [shard_decode.decode_images_local(*args, rank=r, world=world,
                                               bw=prep.bw)
              for r in range(world)]

@@ -59,9 +59,9 @@ def batch():
     frames = bench.photo_frames(H, W, T)
     stream = frame_stream.encode_frames_shared(
         frames, CodecConfig(backend="pallas"))
-    meta, words, offsets = decode_cuda.prepare_stream(stream)
+    _meta, words, offsets = decode_cuda.prepare_stream(stream)
     args = (torch.from_numpy(words), torch.from_numpy(offsets),
-            torch.from_numpy(meta.symbols), meta.bounds, meta.adj)
+            decode_cuda.stage_code(stream.widths, "cpu"))
     geo = dict(num_frames=T, bh=H // 8, bw=W // 8)
     return frames, stream, args, geo
 
@@ -350,7 +350,7 @@ def test_esc32_table_decodes_every_window_as_the_lookup_table(name):
     np.testing.assert_array_equal(e & 0xFF, sym)
     if name != "constant":  # complete codes: T1 8 KB, T2 at most 24 KB
         assert 4 * (ent.size - (1 << K1)) <= 24 * 1024
-        assert ablate_decode.esc32_table(meta, "cpu").t2_in_smem
+        assert ablate_decode.esc32_table(widths, "cpu").t2_in_smem
 
 
 def _refill(w, pos):
@@ -530,8 +530,10 @@ def test_probe_kernel_constants_match_the_wrappers():
 def _meta_args():
     return (torch.zeros(8, dtype=torch.int32, device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta"),
-            torch.zeros(256, dtype=torch.uint8, device="meta"),
-            (0,) * 16, (0,) * 16)
+            decode_cuda.Code(
+                torch.zeros(256, dtype=torch.uint8, device="meta"),
+                (0,) * 16, (0,) * 16,
+                torch.zeros(2048, dtype=torch.int16, device="meta")))
 
 
 def _counts():
@@ -597,21 +599,17 @@ def test_b1_family_and_strips_launch_with_their_tables(monkeypatch, batch):
     monkeypatch.setattr(_build, "launch",
                         lambda name, device, *args: calls.append((name, args)))
     _frames, stream, args, geo = batch
-    meta = decode_cuda.canonical_meta(stream.widths)
-    table = decode_cuda.lookup_table(meta, "cpu")
-    table32 = ablate_decode.esc32_table(meta, "cpu")
+    table = args[2]  # the code's lookup table
+    table32 = ablate_decode.esc32_table(stream.widths, "cpu")
     before = _counts()
-    for v in ablate_decode.B1_FAMILY:
-        with pytest.raises(ValueError, match="lookup table|esc32_table"):
+    for v in ablate_decode.ESC32_VARIANTS:
+        with pytest.raises(ValueError, match="esc32_table"):
             ablate_decode.ablate_decode(*args, **geo, variant=v)
-    with pytest.raises(ValueError, match="lookup table"):
-        strips.decode_strips(*args, **geo)
     assert calls == [] and _counts() == before
     for v in ablate_decode.B1_FAMILY:
-        ablate_decode.ablate_decode(*args, **geo, variant=v, table=table,
-                                    table32=table32)
+        ablate_decode.ablate_decode(*args, **geo, variant=v, table32=table32)
     for prefetch in strips.FORMS.values():
-        strips.decode_strips(*args, **geo, table=table, prefetch=prefetch)
+        strips.decode_strips(*args, **geo, prefetch=prefetch)
     assert [name for name, _ in calls] == \
         (["ablate_decode"] * len(ablate_decode.B1_FAMILY)
          + ["decode_strips"] * len(strips.FORMS))
