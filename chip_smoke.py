@@ -613,9 +613,108 @@ def b2_case(device, phase: str, frame: np.ndarray, bd: int, kw: dict) -> int:
     got = blocks.blocks_to_image_torch(out, h, w, bd)
     check(np.array_equal(got.cpu().numpy(), frame),
           f"{phase} {name}: the blocks differ from the source frame")
+    err = max(err, b2_feed_edges(phase, name, *args, geo))
     print(f"{phase} ok: {name} {w}x{h}: kernel == plain == source, "
           f"{end.numel()} end bits on target")
     return err
+
+
+def shifted(words, lead: int):
+    """``words`` ``lead`` u32 words into a buffer of their own, so 4*lead
+    bytes past a 16-byte boundary (the CUDA allocator's blocks start on
+    one), as an MHTS batch's later frames are."""
+    import torch
+
+    buf = torch.zeros(words.numel() + lead, dtype=torch.int32,
+                      device=words.device)
+    buf[lead:] = words
+    return buf[lead:]
+
+
+def b2_feed_edges(phase: str, name: str, words, offsets, code, geo) -> int:
+    """B2 against its plain version, bytes and end bits, where its read-ahead
+    feed hands lanes to the L1 refill: the words 0-3 u32 past a 16-byte
+    boundary (the first unit starts before word 0; the stream's last block
+    ends inside the buffer's last 16 bytes, its units passing the pad words
+    at some of the four), the offsets reversed and repeated (a region
+    selection's) and 5 offsets past the end (malformed: the refill clamps
+    them); returns the max absolute difference."""
+    import torch
+
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    bits = 32 * words.numel()
+    past = np.array([bits - 40, bits - 1, bits, bits + 12345, (1 << 32) - 1],
+                    np.int64).astype(np.uint32).view(np.int32)
+    sets = {"as staged": offsets,
+            "reversed and repeated": torch.cat(
+                [offsets.flip(0), offsets[::7], offsets[:33]]),
+            "past the end": torch.cat(
+                [offsets[-40:], torch.from_numpy(past).to(offsets.device)])}
+    err = 0
+    for label, offs in sets.items():
+        pout, pend = decode_cuda.decode_blocks_plain(words, offs, code, **geo)
+        for lead in range(4):
+            out, end = decode_cuda.decode_blocks(shifted(words, lead), offs,
+                                                 code, **geo)
+            e = max(int((out.int() - pout.int()).abs().max()),
+                    int((end - pend).abs().max()))
+            check(e == 0, f"{phase} {name}, offsets {label}, words {lead} "
+                  f"u32 past 16 bytes: kernel differs from plain by {e}")
+            err = max(err, e)
+    return err
+
+
+#: phase A's streams of 16-bit codes: (symbols a block, blocks), the first
+#: the 30x2048x1536 batch at 16x16
+A_WIDEST = ((256, 368_640), (9, 1 << 20), (1024, 1 << 16))
+
+
+def phase_a_widest(device) -> int:
+    """B2 on a stream of 16-bit codes alone, the widest a group can take (64
+    bits): random symbols under the all-16-bit table (256 codes of 16 bits,
+    each symbol its own canonical code), 30x1536x2048 at 16x16 and a 3x3 and
+    a 32x32 block size, against its plain version (bytes and end bits) and
+    the symbols, and through :func:`b2_feed_edges`; returns the max absolute
+    difference."""
+    import torch
+
+    from metalhuffman_tpu_torch import native
+    from metalhuffman_tpu_torch.core import bitstream
+    from metalhuffman_tpu_torch.ops import decode_cuda
+
+    rng = np.random.default_rng(24)
+    widths = np.full(256, 16, np.uint8)
+    codes = native.canonical_codes(widths)
+    code = decode_cuda.stage_code(widths, device)
+    worst = 0
+    for steps, n_blocks in A_WIDEST:
+        syms = rng.integers(0, 256, (n_blocks, steps), dtype=np.uint8)
+        data = codes[syms].astype(">u2").view(np.uint8).ravel()
+        words = torch.from_numpy(bitstream.bytes_to_be_words(
+            data, pad_words=decode_cuda.PAD_WORDS).view(np.int32)).to(device)
+        offsets = torch.from_numpy(
+            (np.arange(n_blocks, dtype=np.uint32) * np.uint32(16 * steps))
+            .view(np.int32)).to(device)
+        geo = dict(num_steps=steps, delta=False, emit_end=True)
+        out, end = decode_cuda.decode_blocks(words, offsets, code, **geo)
+        pout, pend = decode_cuda.decode_blocks_plain(words, offsets, code,
+                                                     **geo)
+        err = max(int((out.int() - pout.int()).abs().max()),
+                  int((end - pend).abs().max()))
+        check(err == 0, f"phase A all-16-bit stream, {steps} symbols a "
+              f"block: kernel differs from plain by {err}")
+        check(np.array_equal(out.cpu().numpy(), syms),
+              f"phase A all-16-bit stream, {steps} symbols a block: the "
+              "blocks differ from the symbols")
+        err = max(err, b2_feed_edges("phase A", f"all-16-bit stream {steps}",
+                                     words, offsets, code, geo))
+        worst = max(worst, err)
+        print(f"phase A ok: a stream of {n_blocks} blocks of {steps} 16-bit "
+              f"codes: B2 == plain == the symbols, and with its words 0-3 "
+              f"u32 off 16 bytes, offsets reversed and repeated and past the "
+              f"end")
+    return worst
 
 
 def phase_a_blocks(device) -> int:
@@ -4540,7 +4639,7 @@ def main(argv: list[str]) -> int:
          {"zero_init": True}),
     ])
     max_err = max(max_err, phase_a_end_bits(device))
-    b2_err = phase_a_blocks(device)
+    b2_err = max(phase_a_blocks(device), phase_a_widest(device))
     lut_err = phase_a_tables(device)
     max_err, b2_err = max(max_err, lut_err), max(b2_err, lut_err)
     paths = dict(decode_cuda.path_launches)

@@ -5,16 +5,16 @@
 // and decode_tiles: refill a 64-bit window at the block's bit position, then
 // decode 4 symbols from it. Two forms of the symbol step live here:
 //
-// - decode_group_lut, the step of both CUDA decode kernels (decode_images.cu,
-//   decode_blocks.cu), so the two cannot drift: one lookup in a two-level
+// - decode_group_lut, B1's step (decode_images.cu): one lookup in a two-level
 //   table that tabulates the interval decode below on every 16-bit window
 //   (ops/decode_cuda.py::lookup_entries), staged once per CUDA block by
 //   stage_lut. Its symbol loop, decode_window_lut, is apart from the refill
-//   so that the probes of B1 (decode_strips.cu, ablate_decode.cu's b1
-//   family) can feed it windows read another way. decode_tail_lut is the
-//   same step over a block's last 1-3 symbols, where the block's size is no
-//   multiple of 4 (decode_blocks.cu only: the TPU kernel refuses such sizes,
-//   the JAX package's XLA decode takes them);
+//   so that B2 (decode_blocks.cu, from its read-ahead buffer) and the probes
+//   of B1 (decode_strips.cu, ablate_decode.cu's b1 family) feed it windows
+//   read another way, and the kernels cannot drift. decode_tail_lut is that
+//   loop over a block's last 1-3 symbols, where the block's size is no
+//   multiple of 4 (decode_blocks.cu only, which reads its windows ahead: the
+//   TPU kernel refuses such sizes, the JAX package's XLA decode takes them);
 // - decode_group, the canonical-interval arithmetic the TPU kernel runs (15
 //   compares per symbol): the plain versions' arithmetic, and the body of
 //   ablate_decode.cu's first five variants, which keep the record of B1
@@ -270,26 +270,22 @@ __device__ __forceinline__ uint32_t decode_group_lut(
                                               s_t1, t2, prev, packed);
 }
 
-// A block's last group when its size is no multiple of 4: decode_group_lut
-// over just its r = 1, 2 or 3 symbols, so `pos` advances by their widths
-// alone, `prev` carries through them alone and the end bit is the block's
-// own. (Decoding 4 and dropping the rest would add the width of a symbol
-// past the block.) r is warp-uniform: every lane's block has one size.
+// A block's last group when its size is no multiple of 4: decode_window_lut
+// over just its r = 1, 2 or 3 symbols of `win`, so the bits taken are their
+// widths alone, `prev` carries through them alone and the end bit is the
+// block's own. (Decoding 4 and dropping the rest would add the width of a
+// symbol past the block.) r is warp-uniform: every lane's block has one size.
 template <bool T2_SMEM, bool DELTA>
 __device__ __forceinline__ uint32_t decode_tail_lut(
-    const uint32_t* __restrict__ words, uint64_t last_word, uint64_t pos,
-    const int16_t* s_t1, const int16_t* __restrict__ t2, int r,
+    uint64_t win, const int16_t* s_t1, const int16_t* __restrict__ t2, int r,
     uint32_t& prev, uint32_t& packed) {
   if (r == 1) {
-    return decode_group_lut<T2_SMEM, DELTA, 1>(words, last_word, pos, s_t1,
-                                               t2, prev, packed);
+    return decode_window_lut<T2_SMEM, DELTA, 1>(win, s_t1, t2, prev, packed);
   }
   if (r == 2) {
-    return decode_group_lut<T2_SMEM, DELTA, 2>(words, last_word, pos, s_t1,
-                                               t2, prev, packed);
+    return decode_window_lut<T2_SMEM, DELTA, 2>(win, s_t1, t2, prev, packed);
   }
-  return decode_group_lut<T2_SMEM, DELTA, 3>(words, last_word, pos, s_t1, t2,
-                                             prev, packed);
+  return decode_window_lut<T2_SMEM, DELTA, 3>(win, s_t1, t2, prev, packed);
 }
 
 // ---- launches ------------------------------------------------------------------

@@ -69,9 +69,16 @@ T2_SMEM_MAX_BYTES = 64 * 1024
 #: kernel launches made by the wrappers in this process, by kernel name
 launches = {"decode_images": 0, "decode_blocks": 0}
 #: the same launches by path of the kernel: "<kernel> T2 smem" (the whole
-#: table in shared memory) or "<kernel> T2 L1" (T2 through L1)
-path_launches = {f"{name} T2 {where}": 0 for name in launches
-                 for where in ("smem", "L1")}
+#: table in shared memory) or "<kernel> T2 L1" (T2 through L1); and B2's by
+#: the feed of its code words (:func:`b2_reads_ahead`): "decode_blocks
+#: read-ahead" (each lane's block read ahead into registers in 16-byte
+#: units) or "decode_blocks L1 refill" (three words through L1 a group)
+path_launches = {**{f"{name} T2 {where}": 0 for name in launches
+                    for where in ("smem", "L1")},
+                 "decode_blocks read-ahead": 0, "decode_blocks L1 refill": 0}
+#: the mean code bytes a block from which B2 reads its blocks ahead
+#: (``csrc/decode_blocks.cu::kAheadMinBytes``)
+AHEAD_MIN_BYTES = 64
 
 
 @dataclass(frozen=True)
@@ -427,9 +434,9 @@ def launch_shape(name: str, n_words: int, n_blocks: int, code: Code, *,
                  mode: int = 1, num_steps: int = 64) -> dict:
     """The grid kernel ``name`` launches over ``n_blocks`` blocks of
     ``n_words`` code words with ``code`` (on its CUDA device), and the
-    kernel's attributes: resident CUDA blocks per SM (for B2, under its
-    cap), grid, dynamic and static shared memory per CUDA block, registers
-    and local (spill) bytes per thread."""
+    kernel's attributes: resident CUDA blocks per SM, grid, dynamic and
+    static shared memory per CUDA block, registers and local (spill) bytes
+    per thread."""
     from .. import _build
 
     shape = (ctypes.c_int * 6)()
@@ -506,6 +513,14 @@ def store_bytes(num_steps: int) -> int:
     return 16 if num_steps % 16 == 0 else 4 if num_steps % 4 == 0 else 1
 
 
+def b2_reads_ahead(n_words: int, n_blocks: int) -> bool:
+    """Whether B2 reads a launch's blocks ahead, as ``csrc/decode_blocks.cu``
+    decides it: from ``AHEAD_MIN_BYTES`` code bytes a block on the mean of
+    its ``n_words`` words over ``n_blocks`` blocks. Below, its lanes refill
+    through L1, where a line holds several lanes' blocks."""
+    return 4 * n_words // n_blocks + 1 >= AHEAD_MIN_BYTES
+
+
 def decode_blocks(words: torch.Tensor, offsets: torch.Tensor, code: Code, *,
                   num_steps: int, delta: bool, delta2d: bool = False,
                   emit_end: bool = False, out: torch.Tensor | None = None):
@@ -537,6 +552,9 @@ def decode_blocks(words: torch.Tensor, offsets: torch.Tensor, code: Code, *,
         _launch("decode_blocks", words, code, offsets.data_ptr(), nb,
                 num_steps, mode, out.data_ptr(),
                 None if end is None else end.data_ptr())
+        feed = ("read-ahead" if b2_reads_ahead(words.numel(), nb)
+                else "L1 refill")
+        path_launches[f"decode_blocks {feed}"] += 1
     return (out, end) if emit_end else out
 
 

@@ -218,11 +218,18 @@ def test_kernel_constants_match_the_wrapper():
     assert decode_cuda.T2_SMEM_MAX_BYTES == 64 * 1024
     assert re.search(r"kK1 = 11;", src)
     assert decode_cuda.LUT_K1 == 11
-    for name in ("decode_images", "decode_blocks"):
+    # B1 refills through L1, B2 feeds the same symbol step from its own
+    # feed; neither runs the interval step
+    for name, step in (("decode_images", "decode_group_lut<"),
+                       ("decode_blocks", "decode_window_lut<")):
         kernel = (ROOT / f"metalhuffman_tpu_torch/csrc/{name}.cu").read_text()
         assert f"mht_{name}_shape(" in kernel
-        assert "decode_group_lut<" in kernel and "decode_group<" not in kernel
+        assert step in kernel and "decode_group<" not in kernel
         assert "stage_lut(" in kernel and "launch_facts(" in kernel
+    blocks = (ROOT / "metalhuffman_tpu_torch/csrc/decode_blocks.cu").read_text()
+    assert re.search(rf"kAheadMinBytes = {decode_cuda.AHEAD_MIN_BYTES};",
+                     blocks)
+    assert "4 * n_words / n_blocks + 1" in blocks
 
 
 # -- routing ------------------------------------------------------------------
@@ -366,7 +373,47 @@ def test_cuda_decode_launches_with_the_table_by_path(as_cuda):
     assert after["decode_images T2 smem"] == \
         before["decode_images T2 smem"] + 1
     assert after["decode_blocks T2 L1"] == before["decode_blocks T2 L1"] + 1
-    assert sum(after.values()) == sum(before.values()) + 2
+    feed = ("read-ahead" if decode_cuda.b2_reads_ahead(args[0].numel(), nb)
+            else "L1 refill")
+    assert after[f"decode_blocks {feed}"] == \
+        before[f"decode_blocks {feed}"] + 1
+    assert sum(after.values()) == sum(before.values()) + 3
+
+
+@pytest.mark.parametrize("bd, feed", [(16, "read-ahead"), (4, "L1 refill")])
+def test_b2_launches_count_under_their_feed(as_cuda, bd, feed):
+    cfg = CodecConfig(block_dim=bd)
+    _frames, stream = _stream(2, 32, 48, cfg)
+    prep = tfs.prepare_shared(stream, 2, 32, 48, cfg, device="cpu")
+    nb, key = prep.offsets.numel(), f"decode_blocks {feed}"
+    assert decode_cuda.b2_reads_ahead(prep.words.numel(), nb) == (bd == 16)
+    before = dict(decode_cuda.path_launches)
+    img, img_args = _staged()
+    decode_cuda.decode_images(*img_args, img.code, num_frames=2, bh=img.bh,
+                              bw=img.bw, delta=True)
+    mid = dict(decode_cuda.path_launches)
+    assert mid["decode_blocks read-ahead"] == before["decode_blocks read-ahead"]
+    assert mid["decode_blocks L1 refill"] == before["decode_blocks L1 refill"]
+    assert sum(mid.values()) == sum(before.values()) + 1
+    decode_cuda.decode_blocks(prep.words, prep.offsets, prep.code,
+                              num_steps=bd * bd, delta=True)
+    after = dict(decode_cuda.path_launches)
+    assert after[key] == mid[key] + 1
+    assert after["decode_blocks T2 smem"] == mid["decode_blocks T2 smem"] + 1
+    assert sum(after.values()) == sum(mid.values()) + 2
+    assert [name for name, _args in as_cuda] == ["decode_images",
+                                                  "decode_blocks"]
+    assert as_cuda[1][1][3:5] == (nb, bd * bd)
+
+
+def test_b2_feed_follows_the_mean_bytes_a_block():
+    at = decode_cuda.AHEAD_MIN_BYTES
+    # 4 * n_words // n_blocks + 1 bytes a block, as the kernel's launch: 4
+    # blocks of n_words words have n_words + 1
+    assert not decode_cuda.b2_reads_ahead(at - 2, 4)
+    assert decode_cuda.b2_reads_ahead(at - 1, 4)
+    assert decode_cuda.b2_reads_ahead(3 * at, 11)
+    assert not decode_cuda.b2_reads_ahead(at, 11)
 
 
 def test_cpu_decodes_never_reach_the_build(monkeypatch):
