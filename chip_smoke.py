@@ -88,8 +88,15 @@ Phases (any failure exits nonzero and prints no result):
    chunks of 10 with its CRC chain, a checked 512x512 region, a flipped
    bit inside the region (raises) and outside (passes), and a wrapper with
    a changed keyint (raises). G6: F1's 150 frames as MHVT over an MHV2.
+   G8: 60 panned 2048x1536 photo frames as MC MHVT with a keyframe every 30
+   (``mc8.range``'s deployment) through ``frame_stream.decode_range_parsed``
+   for [0, 1), [29, 31), [30, 38), [52, 60) and [59, 60), each equal to the
+   frames and launching B1, the fold kernel (none for a span of one frame
+   from the keyframe) and C1 once each, counted in ``temporal.seek_frames``;
+   a byte inverted in lead frame 40's code raises on [52, 60).
    Every fold of a CUDA tensor is one launch of the fold kernel
-   (``temporal_fold``). Then G7: the fold kernel against its plain version
+   (``temporal_fold``), and every temporal range with per-frame CRCs one
+   launch of C1. Then G7: the fold kernel against its plain version
    (``temporal.fold_plain``) on every case of the CPU tests (uint8, uint8 x
    3, uint16; keyint 1, 3, 8, fewer frames than keyint, short first and
    last groups; zero, negative and oversized vectors; spans split across
@@ -244,8 +251,9 @@ Phases (any failure exits nonzero and prints no result):
    time on the 8 bridge frames: one call between CUDA events and the card's
    time queued behind a spin (median of 3 rounds), beside its byte bound,
    and zlib's on the host. One ``phase O`` JSON line holds them. (Phases
-   F, K, M and N launch C1 too: each ``decode_range`` on the card of a
-   container with per-frame CRCs, once a request, once a frame of MHTS.)
+   F, G, K, M and N launch C1 too: each ``decode_range`` on the card of a
+   container with per-frame CRCs, once a request, once a frame of MHTS,
+   and each temporal range of an MHVT with them.)
 17. Times, with CUDA events over distinct staged inputs: B1 with and without
    end bits, B2 at 16x16 and 4x4, each against its plain version on the
    30x2048x1536 batch, each with its grid (resident CUDA blocks per SM,
@@ -319,6 +327,12 @@ G_SMALL = (768, 1366)  # G2's second size: a width no multiple of 8
 G_COLOR = (1080, 1920)  # G3's color frames
 G_SHORT = 10  # G3's 4-channel MHTC and G4's gray16 video, without temporal
 G_REGION = (512, 768, 512, 512)  # (y0, x0, rh, rw) of G's region decodes
+G8_FRAMES = 60  # phase G8: a seek's clip, two keyframe groups of a second
+G8_KEYINT = 30
+#: G8's requests [a, b): one frame at a keyframe, across the boundary, a
+#: group's head, its tail, its last frame
+G8_RANGES = ((0, 1), (29, 31), (30, 38), (52, 60), (59, 60))
+G8_LEAD = 40  # G8: the lead frame whose code byte is inverted
 TIMED_ITERS = 12
 VARIANTS = 4
 RATE_SMALL = 1 << 16  # S3 elements in phase E
@@ -1630,16 +1644,18 @@ def color_frames(h: int, w: int, t: int, c: int = 3) -> np.ndarray:
     return np.stack(chans, axis=-1)
 
 
-def flip_in_blob(blob: bytes, bit: int) -> bytes:
-    """An MHVT blob whose MHTV inner has code bit ``bit`` flipped; the
-    wrapper and both CRCs as they were."""
+def flip_in_blob(blob: bytes, bit: int, n: int = 1) -> bytes:
+    """An MHVT blob whose MHTV inner has code bits [bit, bit + n) flipped;
+    the wrapper and both CRCs as they were."""
     from metalhuffman_tpu_torch.models import frame_stream as fs
     from metalhuffman_tpu_torch.models import temporal
     from metalhuffman_tpu_torch.models.config import CodecConfig
 
     inner, keyint, crc, mvs, fcrcs, fl = temporal.unwrap(blob)
     stream, t, h, w, bd, delta = fs.read_shared(inner)
-    inner = fs.write_shared(flip_bit(stream, bit), t, h, w,
+    for b in range(bit, bit + n):
+        stream = flip_bit(stream, b)
+    inner = fs.write_shared(stream, t, h, w,
                             CodecConfig(block_dim=bd, delta=delta),
                             source_crc32=fs.source_crc32(inner))
     return temporal.wrap(inner, keyint, crc, mvs, fcrcs, fl)
@@ -1718,6 +1734,13 @@ def phase_g(device) -> tuple[dict, dict, dict]:
                     mt.encode_video, f6, CodecConfig(temporal=True, keyint=k))
     check(temporal.unwrap(blob6)[0][:4] == b"MHV2",
           "G6: the inner is not segmented")
+    g8 = photo_frames(h, w, G8_FRAMES)
+    blob8 = encoded(f"G8 MC MHVT {G8_FRAMES}x{h}x{w} keyint {G8_KEYINT}",
+                    mt.encode_video, g8,
+                    CodecConfig(temporal=True, motion=True, keyint=G8_KEYINT,
+                                frame_crcs=True))
+    check(temporal.unwrap(blob8)[0][:4] == b"MHTV",
+          "G8: the inner is not one MHTV")
     segs6 = [ft for _, ft in fs.read_segmented(temporal.unwrap(blob6)[0])[0]]
     # G5: a bit inside the region of G1's frame 10 (block row 96, columns
     # 96-159) whose flip the end-bit check flags, one outside (column 162)
@@ -1808,10 +1831,12 @@ def phase_g(device) -> tuple[dict, dict, dict]:
         equal(temporal.decode_temporal_video_region(
             blob, 9, 12, y0, x0, rh, rw, True, device=device),
             g1[9:12, y0:y0 + rh, x0:x0 + rw], f"G5 {name} checked region")
-        # the range, the frame, the chunks; an MC region is a range
+        # the range, the frame, the chunks; an MC region is a range; each
+        # checks its frames with C1 on the card
         expected["decode_images"] += 2 + iter_chunks(t, k, 10) + int(mc)
         expected["decode_blocks"] += 0 if mc else 1
         expected["temporal_fold"] += 2 + iter_chunks(t, k, 10) + int(mc)
+        expected["frame_crc"] += 2 + iter_chunks(t, k, 10) + int(mc)
     try:
         temporal.decode_temporal_video_region(
             flip_in_blob(blob1, bit_in), 9, 12, y0, x0, rh, rw, True,
@@ -1848,6 +1873,9 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     del got
     print(f"phase G6 ok: decode_video of the MHVT over an MHV2 of segments "
           f"{segs6} == the {F1_FRAMES} frames")
+    for name, n in seek_requests(device, blob8, g8).items():
+        expected[name] += n
+    del g8, blob8
     counts = read_launches()
     check(counts == expected,
           f"phase G: kernel launches {counts}, expected {expected}")
@@ -1884,6 +1912,86 @@ def phase_g(device) -> tuple[dict, dict, dict]:
     return counts, worst, {"G1": blob1, "G2": blob2,
                            f"G2 {G_SMALL[0]}x{G_SMALL[1]}": blob2s,
                            "G3": blob3, "G4": blob4}
+
+
+def seek_requests(device, blob: bytes, frames: np.ndarray) -> dict:
+    """Phase G8: G8's requests through the port's one random access
+    (``frame_stream.parse_range_container``, ``decode_range_parsed``) on an
+    MC MHVT with a keyframe every G8_KEYINT frames, the ``mc8.range``
+    deployment: each equal to the source frames, each launching B1 once,
+    the fold kernel once (not at all for a span of one frame from the
+    keyframe) and C1 once, the frames of the seek counted in
+    ``temporal.seek_frames``, the handle's code and offsets and the fetched
+    frames in page-locked memory; then a byte inverted in the code of lead
+    frame G8_LEAD must raise. Returns the launches it made."""
+    import torch
+
+    from metalhuffman_tpu_torch.models import frame_stream as fs
+    from metalhuffman_tpu_torch.models import temporal
+
+    k = G8_KEYINT
+    parsed = fs.parse_range_container(blob)
+    seek0 = dict(temporal.seek_frames)
+    made = dict.fromkeys(KERNELS, 0)
+
+    def request(p, a, b):
+        before = read_launches()
+        t0 = time.perf_counter()
+        try:
+            return fs.decode_range_parsed(p, a, b, device=device)[0]
+        finally:
+            dt = time.perf_counter() - t0
+            grew = {n: c - before[n] for n, c in read_launches().items()
+                    if c != before[n]}
+            want = {"decode_images": 1, "frame_crc": 1}
+            if b - k * (a // k) > 1:
+                want["temporal_fold"] = 1
+            check(grew == want, f"phase G8 [{a}, {b}): launches {grew}, "
+                  f"expected {want}")
+            for n, c in grew.items():
+                made[n] += c
+            print(f"phase G8 [{a}, {b}): {b - k * (a // k)} frames decoded "
+                  f"and folded from keyframe {k * (a // k)}, {dt * 1e3:.3f} "
+                  f"ms host clock, launches {grew}")
+
+    lead = 0
+    for a, b in G8_RANGES:
+        got = request(parsed, a, b)
+        check(got.dtype == frames.dtype and np.array_equal(got, frames[a:b]),
+              f"phase G8 [{a}, {b}): differs from the source")
+        lead += a - k * (a // k)
+    # the handle's code and offsets went to page-locked memory at its first
+    # card decode, and the frames come back in it
+    segs = parsed[1][5][1][0]
+    check(all(torch.from_numpy(s.code_bytes).is_pinned()
+              and torch.from_numpy(s.block_offsets.view(np.uint8)).is_pinned()
+              for s, _ in segs) and torch.from_numpy(got).is_pinned(),
+          "phase G8: the handle's code and offsets or the fetched frames "
+          "are not in page-locked memory")
+    asked = sum(b - a for a, b in G8_RANGES)
+    check(temporal.seek_frames == {"asked": seek0["asked"] + asked,
+                                   "lead": seek0["lead"] + lead},
+          f"phase G8: seek_frames {temporal.seek_frames}, from {seek0}")
+    inner = temporal.unwrap(blob)[0]
+    stream, _t, h, w, _bd, _d = fs.read_shared(inner)
+    per = (h // 8) * (w // 8)
+    bit = int(stream.block_offsets[G8_LEAD * per + per // 2]) // 8 * 8
+    bad = fs.parse_range_container(flip_in_blob(blob, bit, 8))
+    a, b = G8_RANGES[3]
+    try:
+        request(bad, a, b)
+    except ValueError as e:
+        check("CRC-32" in str(e), f"phase G8 inverted byte: {e}")
+        print(f"phase G8 ok: a byte inverted in lead frame {G8_LEAD}'s code "
+              f"(byte {bit // 8}) raises on [{a}, {b}): {e}")
+    else:
+        raise PhaseError("G8: a seek through a corrupt lead frame passed")
+    print(f"phase G8 ok: {G8_FRAMES}x{h}x{w} MC MHVT, keyint {k}: "
+          f"decode_range_parsed {list(G8_RANGES)} == the frames, B1, the "
+          f"fold kernel and C1 once each a request (no fold for a span of "
+          f"one frame), the handle's code and the frames page-locked; "
+          f"seek_frames asked {asked}, lead {lead}")
+    return made
 
 
 #: phase G7: the fold kernel's cases, those the CPU tests hold its host
@@ -3180,6 +3288,7 @@ def phase_k(device) -> tuple[dict, dict, dict]:
             times)
         expected["decode_images"] += 2 * K_REPS  # planes 8-16: 2 segments
         expected["temporal_fold"] += K_REPS  # the group 8-16, folded
+        expected["frame_crc"] += K_REPS  # frames 11-15 checked on the card
         check(info == {"reencoded_frames": 5},
               f"K3 MHVT extract: info {info}")
         got = temporal.decode_temporal_video(mext, device)

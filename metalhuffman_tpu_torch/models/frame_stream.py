@@ -309,8 +309,13 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
             raise ValueError(NATIVE_CHECK_ERROR)
         return PreparedNative(stream, num_frames, height, width,
                               cfg.block_dim)
-    window, offsets = decode_cuda.stream_window(stream, cfg.block_size)
+    window, base = decode_cuda.code_window(stream, cfg.block_size)
     words, _ = decode_cuda.stage_words([window], device)
+    # the offsets go up as they are and are rebased to the window there (u32
+    # bits in int32, so the subtraction wraps as u32 does): no host pass
+    offsets = torch.from_numpy(np.asarray(
+        stream.block_offsets, dtype=np.uint32).view(np.int32)).to(device) - (
+            base - (1 << 32) if base >= 1 << 31 else base)
     init_grid = None
     if stream.block_init is not None:
         init_grid = torch.from_numpy(
@@ -325,8 +330,7 @@ def prepare_shared(stream: container.EncodedStream, num_frames: int,
         ).to(device)
         last_window = decode_cuda.last_block_window(stream, cfg.block_size)
     return PreparedShared(
-        num_frames, height, width, cfg.block_dim, bh, bw, words,
-        torch.from_numpy(offsets.view(np.int32)).to(device),
+        num_frames, height, width, cfg.block_dim, bh, bw, words, offsets,
         decode_cuda.stage_code(stream.widths, device), init_grid, end_targets,
         last_window)
 
@@ -804,20 +808,26 @@ def read_video(data: bytes, config: CodecConfig | None = None):
 
 
 def parse_range_container(data: bytes):
-    """Parse an MHTV/MHV2/MHTS blob once for repeated range decodes; returns
-    an opaque handle for :func:`decode_range_parsed`."""
+    """Parse an MHTV/MHV2/MHTS/MHVT blob once for repeated range decodes;
+    returns an opaque handle for :func:`decode_range_parsed`. An MHVT's
+    handle holds its wrapper's fields and its parsed inner
+    (``temporal._parse_temporal_range``)."""
+    from . import temporal
+
+    if data[:4] == temporal.TEMPORAL_MAGIC:
+        return ("temporal", temporal._parse_temporal_range(data), None)
     if data[:4] == STREAM_MAGIC:
         return ("stream", read_stream(data), read_stream_crcs(data))
     if data[:4] not in (SHARED_MAGIC, SEGMENTED_MAGIC):
-        raise ValueError("not an MHTV/MHV2/MHTS container")
+        raise ValueError("not an MHTV/MHV2/MHTS/MHVT container")
     return ("segments", read_video(data), read_frame_crcs(data))
 
 
 def decode_range(data: bytes, a: int, b: int,
                  config: CodecConfig | None = None, to_host: bool = True, *,
                  device="cuda"):
-    """Decode frames [a, b) of an MHTV/MHV2/MHTS container on ``device`` ->
-    (frames, h, w).
+    """Decode frames [a, b) of an MHTV/MHV2/MHTS/MHVT container on
+    ``device`` -> (frames, h, w).
 
     Only those frames' blocks are decoded (:func:`frame_slice`), and an MHV2
     range may straddle segments, each with its own table. The header fixes
@@ -829,6 +839,12 @@ def decode_range(data: bytes, a: int, b: int,
     hash the fetched frames with zlib. With ``to_host=False`` it is the
     tensor on ``device`` (segments joined by ``torch.cat``), unchecked, for
     a caller that goes on with device work before one fetch.
+
+    An MHVT decodes its residual frames from the keyframe before ``a`` and
+    folds them (``temporal._decode_temporal_range_parsed``): the frames are
+    those of its inner, (b-a, H, W[, C]) uint8 or (b-a, H, W) uint16, and
+    ``config``, if given, must restate the wrapper's keyframe interval and
+    motion flag.
     """
     return decode_range_parsed(parse_range_container(data), a, b, config,
                                to_host, device=device)
@@ -848,8 +864,15 @@ def decode_range_parsed(parsed, a: int, b: int,
     and spans ``range.crc`` (the per-frame CRC-32 check, host work alone:
     a comparison of integers after the card's CRC, zlib's hash of each frame
     after any other decode): once a request, or once a frame in an MHTS
-    container."""
+    container. An MHVT request marks ``fold`` between ``range.decode`` and
+    ``range.fetch``."""
     kind, payload, fcrcs = parsed
+    if kind == "temporal":
+        from . import temporal
+
+        frames = temporal._decode_temporal_range_parsed(
+            payload, a, b, device, to_host=to_host, config=config)
+        return frames, frames.shape[1], frames.shape[2]
     if kind == "stream":
         # one table per frame: a range is a loop of one-frame decodes, each
         # checked against its MHT1 record's CRC where one is recorded
@@ -883,6 +906,8 @@ def decode_range_parsed(parsed, a: int, b: int,
     segs, t, h, w, cfg = payload
     if not 0 <= a < b <= t:
         raise ValueError(f"frames [{a}, {b}) out of range ({t} frames)")
+    if not native.is_native(device) and torch.device(device).type == "cuda":
+        _pin_segments(segs)
     if config is not None:
         cfg = _container_config(config, cfg.block_dim, cfg.delta,
                                 segs[0][0].predictor)
@@ -899,15 +924,62 @@ def decode_range_parsed(parsed, a: int, b: int,
     frames = outs[0] if len(outs) == 1 else torch.cat(outs)
     if not to_host:
         return frames, h, w
-    crcs = (crc_cuda.frame_crcs(frames)
+    return fetch_checked(frames, fcrcs, a), h, w
+
+
+def _pinned(a: np.ndarray) -> np.ndarray:
+    """A copy of ``a`` in page-locked host memory (torch's pinned host
+    cache), as numpy: the memory lives as long as the array."""
+    a = np.ascontiguousarray(a)
+    raw = torch.from_numpy(a.view(np.uint8).reshape(-1)).pin_memory()
+    return raw.numpy().view(a.dtype).reshape(a.shape)
+
+
+def _pin_segments(segs: list) -> None:
+    """Move a range handle's code and offsets into page-locked host memory,
+    once, at its first decode on a card: each request's words and offsets
+    then go up by DMA, not through the driver's copy out of pageable memory
+    on the host's CPU."""
+    if torch.from_numpy(segs[0][0].code_bytes).is_pinned():
+        return
+    for i, (stream, ft) in enumerate(segs):
+        segs[i] = (dataclasses.replace(
+            stream, code_bytes=_pinned(stream.code_bytes),
+            block_offsets=_pinned(stream.block_offsets)), ft)
+
+
+def fetch_checked(frames: torch.Tensor, fcrcs, base: int) -> np.ndarray:
+    """Fetch frames [base, base+len) of a stream to the host as numpy and
+    check them against its per-frame CRC table ``fcrcs`` (None passes). On
+    a CUDA device one launch of ``crc_cuda.frame_crcs`` hashes each frame's
+    bytes (a uint16 frame's as zlib reads them) before the fetch and the
+    host compares integers; CPU tensors hash the fetched frames with zlib.
+    A card's frames and CRCs come down into page-locked memory (torch's
+    pinned host cache, which the returned array holds) with one wait.
+    Marks ``range.fetch`` and spans ``range.crc``."""
+    crcs = (crc_cuda.frame_crcs(frames.view(torch.uint8))
             if fcrcs is not None and crc_cuda.is_card(frames) else None)
     mark("range.fetch")
-    frames = frames.cpu().numpy()
+    if frames.is_cuda:
+        # both come down into pinned memory by DMA, then one wait
+        stream = torch.cuda.current_stream(frames.device)
+        frames = _fetch_pinned(frames)
+        if crcs is not None:
+            crcs = _fetch_pinned(crcs)
+        stream.synchronize()
+    frames = frames.numpy()
     if crcs is not None:
-        crcs = crcs.cpu().numpy()
+        crcs = crcs.numpy()
     with span("range.crc"):
-        verify_frame_crcs(frames, fcrcs, base=a, crcs=crcs)
-    return frames, h, w
+        verify_frame_crcs(frames, fcrcs, base=base, crcs=crcs)
+    return frames
+
+
+def _fetch_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Queue the copy of a card's tensor into page-locked host memory;
+    the host reads it after the stream's wait."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
 
 
 def decode_container_device(data: bytes, config: CodecConfig | None = None,

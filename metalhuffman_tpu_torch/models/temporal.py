@@ -78,6 +78,11 @@ _KNOWN_FLAGS = (FLAG_MOTION | FLAG_FRAME_CRCS | FLAG_INNER64
 _MOTION_TABLE_ERROR = ("corrupt MHVT container (motion table length "
                        "disagrees with the frame count)")
 
+#: frames the temporal range decodes of this process returned (``asked``)
+#: and decoded and folded ahead of them, from the keyframe before each
+#: request's first frame (``lead``)
+seek_frames = {"asked": 0, "lead": 0}
+
 
 def _group_start(i: int, keyint: int, first_len: int) -> int:
     """Index of the keyframe opening the group containing frame ``i``
@@ -898,46 +903,70 @@ def decode_temporal_range(blob: bytes, a: int, b: int,
     keyframe before ``a`` through ``b-1`` decode on ``device`` (at most
     ``keyint - 1`` extra frames), fold there, and frames [a, b) are
     fetched, checked against the per-frame CRC table where there is
-    one."""
+    one. The route of ``frame_stream.decode_range`` on an MHVT."""
     return _decode_temporal_range_parsed(_parse_temporal_range(blob), a, b,
                                          device)
 
 
-def _decode_temporal_range_parsed(parts, a: int, b: int,
-                                  device="cuda") -> np.ndarray:
-    if not 0 <= a < b:
-        raise ValueError(f"invalid frame range [{a}, {b})")
-    keyint, _tcrc, mvs, fcrcs, first_len, parsed, cinfo, _total = parts
+def _decode_temporal_range_parsed(parts, a: int, b: int, device="cuda", *,
+                                  to_host: bool = True,
+                                  config: CodecConfig | None = None):
+    """Frames [a, b) of a parsed MHVT (:func:`_parse_temporal_range`): the
+    residual frames from the keyframe ``kf`` before ``a`` through ``b-1``
+    decode as the inner's range (``frame_stream.decode_range_parsed``, left
+    on ``device``), fold there (:func:`fold_planes`) and are cropped to [a,
+    b). With ``to_host`` they are fetched as numpy and checked against the
+    per-frame CRC table where there is one, as an MHTV range is
+    (``frame_stream.fetch_checked``: C1 on the card before the fetch, uint16
+    frames as their bytes; zlib for CPU tensors). Without ``to_host`` the
+    tensor on ``device`` comes back unchecked. ``device="native"`` decodes
+    the inner on the host C++ decoder (fetched and checked against an inner
+    per-frame CRC table) and folds on the host, as the JAX package's native
+    backend does. ``config``, if given, must restate the wrapper's keyframe
+    interval and motion flag. Counted in :data:`seek_frames`.
+
+    Under a profiler a device request marks the inner's ``range.stage``
+    and ``range.decode``, then ``fold`` (the fold, the crop and C1's
+    launch), then with ``to_host`` ``range.fetch`` and the span
+    ``range.crc``."""
+    keyint, _tcrc, mvs, fcrcs, first_len, parsed, cinfo, total = parts
+    if not 0 <= a < b or (total is not None and b > total):
+        raise ValueError(f"frames [{a}, {b}) out of range ({total} frames)")
+    if config is not None and (not config.temporal or config.keyint != keyint
+                               or config.motion != (mvs is not None)):
+        raise ValueError(
+            f"config (temporal={config.temporal}, keyint={config.keyint}, "
+            f"motion={config.motion}) disagrees with the MHVT container "
+            f"(keyint {keyint}, motion {mvs is not None})")
     kf = _group_start(a, keyint, first_len)
     # the span starts at a group boundary; it inherits the short first
     # group only when it starts at the very beginning of the stream
     span_fl = first_len if kf == 0 else None
-    # native: the inner range is fetched (and checked against an inner
-    # per-frame CRC table) and folds on the host, as in the JAX package
-    host = native.is_native(device)
-    if cinfo is not None:
-        channels = cinfo[0]
-        planes, _h, _w = frame_stream.decode_range_parsed(
-            parsed, kf * channels, b * channels, to_host=host,
-            device=device)
-        fold = (color.fold_video_planes if host
-                else color.fold_video_planes_torch)
-        res = fold(planes, *cinfo)
-    else:
-        res, h, w = frame_stream.decode_range_parsed(
-            parsed, kf, b, to_host=host, device=device)
-        res = res.reshape(-1, h, w)
     if mvs is not None:
         if mvs.shape[0] < b:
             raise ValueError(
                 "corrupt MHVT container (motion table shorter than the "
                 "stream)")
         mvs = mvs[kf:b]
-    if host:
-        out = _fold_host(res, keyint, mvs, span_fl)[a - kf :]
+    ch = 1 if cinfo is None else cinfo[0]
+    if native.is_native(device):
+        planes, _h, _w = frame_stream.decode_range_parsed(
+            parsed, kf * ch, b * ch, device=device)
+        if cinfo is not None:
+            planes = color.fold_video_planes(planes, *cinfo)
+        out = _fold_host(planes, keyint, mvs, span_fl)[a - kf :]
+        if to_host:
+            _verify_frame_crcs(out, fcrcs, base=a)
+        else:
+            out = torch.from_numpy(np.ascontiguousarray(out))
     else:
-        out = _fold(res, keyint, mvs, span_fl)[a - kf :].cpu().numpy()
-    _verify_frame_crcs(out, fcrcs, base=a)
+        planes, _h, _w = frame_stream.decode_range_parsed(
+            parsed, kf * ch, b * ch, to_host=False, device=device)
+        out = fold_planes(planes, keyint, mvs, span_fl, cinfo)[a - kf :]
+        if to_host:
+            out = frame_stream.fetch_checked(out, fcrcs, a)
+    seek_frames["asked"] += b - a
+    seek_frames["lead"] += a - kf
     return out
 
 

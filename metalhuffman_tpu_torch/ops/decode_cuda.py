@@ -208,25 +208,32 @@ def stage_codes(widths, device) -> list[Code]:
                  tables[at[i] : at[i + 1]]) for i, meta in enumerate(metas)]
 
 
-def stream_window(stream, block_size: int):
-    """The code bytes a stream's blocks of ``block_size`` symbols reach and
-    their u32 offsets into them -> (code, offsets).
+def code_window(stream, block_size: int):
+    """The code bytes a stream's blocks of ``block_size`` symbols reach ->
+    (code, base): ``base`` is the bit of the stream where ``code`` starts.
 
     From the word of the lowest offset to 16 * ``block_size`` bits past the
     highest (no code is longer than 16 bits, so no block, well-formed or
-    not, reads further), with the offsets rebased by that multiple of 32
-    bits, which keeps every ``>> 5`` and ``& 31`` of the decode. A whole
+    not, reads further). ``base`` is a multiple of 32 bits, so offsets
+    rebased by it keep every ``>> 5`` and ``& 31`` of the decode. A whole
     stream keeps all its words; a frame slice of a long segment
     (``frame_slice``) stages its own frames' words, not the segment's.
     """
-    offsets = np.asarray(stream.block_offsets, dtype=np.uint32)
+    offsets = stream.block_offsets
     code = stream.code_bytes
-    if offsets.size:
-        lo_word = int(offsets.min()) >> 5
-        hi_word = (int(offsets.max()) + 16 * block_size) // 32 + 1
-        code = code[4 * lo_word : 4 * hi_word]
-        offsets = offsets - np.uint32(32 * lo_word)
-    return code, offsets
+    if not offsets.size:
+        return code, 0
+    lo_word = int(offsets.min()) >> 5
+    hi_word = (int(offsets.max()) + 16 * block_size) // 32 + 1
+    return code[4 * lo_word : 4 * hi_word], 32 * lo_word
+
+
+def stream_window(stream, block_size: int):
+    """The code bytes a stream's blocks reach (:func:`code_window`) and
+    their u32 offsets into them -> (code, offsets)."""
+    code, base = code_window(stream, block_size)
+    offsets = np.asarray(stream.block_offsets, dtype=np.uint32)
+    return code, offsets - np.uint32(base)
 
 
 def prepare_stream(stream):

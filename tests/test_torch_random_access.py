@@ -18,6 +18,7 @@ import metalhuffman_tpu
 from metalhuffman_tpu.core import bitstream as jbitstream
 from metalhuffman_tpu.models import CodecConfig as JaxConfig
 from metalhuffman_tpu.models import frame_stream as jfs
+from metalhuffman_tpu_torch.core import container as tcontainer
 from metalhuffman_tpu_torch.models import frame_stream as tfs
 from metalhuffman_tpu_torch.models.config import CodecConfig
 from metalhuffman_tpu_torch.ops import decode_cuda
@@ -120,6 +121,24 @@ def test_stage_words_equals_the_host_word_view():
     for c, a, b in zip(codes, starts, ends):
         want = jbitstream.bytes_to_be_words(c, pad_words=decode_cuda.PAD_WORDS)
         np.testing.assert_array_equal(words[a:b].numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("first", [0, 40, 32 * 5 + 7, 2**31 + 96,
+                                   2**32 - 4096])
+def test_prepare_shared_rebases_the_offsets_as_stream_window(first):
+    """The staged offsets are rebased to the window on the device, in
+    int32: the same u32 bits as the host's rebase, past 2**31 bits too."""
+    # the code is never read: one zero byte seen as many, so no memory
+    n = first // 8 + 1024
+    code = np.lib.stride_tricks.as_strided(np.zeros(1, np.uint8), (n,), (0,))
+    offsets = first + np.array([0, 300], dtype=np.uint64)
+    stream = tcontainer.EncodedStream(
+        8 * 16, np.full(256, 8, np.uint8), code, offsets.astype(np.uint32))
+    prep = tfs.prepare_shared(stream, 1, 8, 16, CodecConfig(), device="cpu")
+    window, want = decode_cuda.stream_window(stream, 64)
+    assert decode_cuda.code_window(stream, 64)[1] == 32 * (first >> 5)
+    np.testing.assert_array_equal(prep.offsets.numpy().view(np.uint32), want)
+    assert prep.words.numel() == window.size // 4 + decode_cuda.PAD_WORDS
 
 
 @pytest.mark.parametrize("container", ["MHTV", "MHV2"])
